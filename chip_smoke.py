@@ -6,17 +6,28 @@
 Phases (any failure exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints torch/CUDA versions and
      `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
-  2. build: compiles both CUDA kernels from csrc/ (nvcc, sm_90a);
-  3. kernel vs plain at the main path's shapes, TF32 off: tied attention (A)
-     at L in {64, 100, 120}, N in {8, 64}, f32 and bf16, B=4; SE(3) attend
-     (B) at the three GSE3Res layer shapes, L=96, B=2, kNN + band mask;
-  4. serving: three requests through `predict()` with the fast preset, made
-     from examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120
-     / 8), then a batched forward at B=4, N=8, L=120; every forward must
-     launch kernel A 21 times and kernel B 12 times;
-  5. end to end: one request with the same weights through
-     attn_impl="pallas" and "xla" at f32, held to the full-depth envelope
-     (logits max|d| <= 1e-2, xyz <= 0.4);
+  2. build: compiles the six CUDA kernels from csrc/ (one nvcc per source,
+     all at once, sm_90a);
+  3. kernel vs plain at the main path's shapes, TF32 off, float32 and
+     bfloat16: tied attention (A) at L in {120, 128, 250}, N in {8, 64};
+     SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask;
+     the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
+     + residual (C) over both axes, with and without LN/residual; fused LN +
+     FF + residual (D); outer-product mean (E) at N in {8, 64}; 3x3 conv (F)
+     at dilations 1/2/4/8 with and without the pre-op. Each shape logs
+     max|d| against its bound, the kernel's and the plain version's CUDA-event
+     ms, and the least time the card could take (`bound`);
+  4. serving: requests through `predict()` with the fast preset, made from
+     examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120 / 8,
+     crop 128 / 64, the whole chain L=250 / 32), each timed over repeated warm
+     forwards, then batched forwards at B=4, N=8, L=120 and L=128; every
+     forward at L >= 128 must launch A/B/C/D/E/F 21/12/56/28/7/46 times, every
+     one below 128 A/B 21/12 and no pair-track kernel;
+  5. end to end: requests with the same weights through attn_impl="pallas"
+     and "xla" at float32 (crop 96 and crop 128), held to the full-depth
+     envelope (logits max|d| <= 1e-2, xyz <= 0.4);
+  6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
+     busy share and the top device-time operators;
 then prints one JSON line of kernel results and, last, the contract line
 {"ok": true, "device": {...}}.
 """
@@ -25,6 +36,7 @@ from __future__ import annotations
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -32,13 +44,29 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 A3M = os.path.join(ROOT, "examples", "demo_casp.a3m")
-REQUESTS = ((64, 64), (96, 32), (120, 8))  # (crop, n_seq)
-BATCH = (4, 8, 120)                        # (B, N, L)
-TIED_PER_FWD, SE3_PER_FWD = 21, 12
-# kernel A: float32 as tests/test_pallas.py; bf16 within two bf16 ulps of the
-# plain value (both round the output, and the probabilities at other maxima)
-F32_ATOL, BF16_ATOL, BF16_RTOL, SE3_TOL = 2e-5, 1e-2, 2.0 ** -6, 2e-5
+REQUESTS = ((64, 64), (96, 32), (120, 8), (128, 64), (250, 32))  # (crop, n_seq)
+BATCHES = ((4, 8, 120), (4, 8, 128))                            # (B, N, L)
+REPS = 10  # warm forwards timed per request and batch
+KERNELS = {  # name: (source, TPU kernel it replaces, launches per forward at L >= 128)
+    "tied_attention": ("tied_attention.cu", "tied_attention.py:99", 21),
+    "se3_attend": ("se3_attend.cu", "se3_attend.py:486", 12),
+    "fused_performer": ("fused_performer.cu", "fused_performer.py:398", 56),
+    "fused_ff": ("fused_ff.cu", "fused_ff.py:58", 28),
+    "outer_product": ("outer_product.cu", "outer_product.py:88", 7),
+    "conv3x3": ("conv3x3.cu", "conv3x3.py:134", 46),
+}
+PAIR_KERNELS = ("fused_performer", "fused_ff", "outer_product", "conv3x3")
+# float32 tolerances: those of the JAX kernel tests (A 2e-5, B 2e-5, C 3e-5,
+# D, E, F 2e-5). bfloat16: two bf16 ulps of the plain value (2^-6 relative)
+# + 1e-2: both sides round the same intermediates, in other summation orders.
+F32_TOL = {"tied_attention": 2e-5, "se3_attend": 2e-5, "fused_performer": 3e-5,
+           "fused_ff": 2e-5, "outer_product": 2e-5, "conv3x3": 2e-5}
+BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
+# cores, HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+HBM_BYTES_S = 3.35e12
 
 
 def log(*a):
@@ -51,7 +79,7 @@ def require(ok, what):
         raise AssertionError(what)
 
 
-def cuda_time(fn, iters=20, warmup=3):
+def cuda_time(fn, iters=10, warmup=2):
     """Mean milliseconds per call, CUDA events around `iters` calls."""
     import torch
 
@@ -64,6 +92,74 @@ def cuda_time(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _tensors(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from _tensors(v)
+    elif isinstance(obj, (tuple, list)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def bound(plain, args, out, dtype, work_share=1.0):
+    """(ms, "operations" | "bytes"): the least time the card could take.
+    Operations: the matrix-product operations of the plain version on these
+    inputs (torch.utils.flop_counter), times the share of the work these
+    inputs need (masked edges are skipped), over the peak rate of `dtype`;
+    bytes: each input read once and each output written once, over HBM."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        plain(*args)
+    flops = counter.get_total_flops() * work_share
+    nbytes = sum(t.numel() * t.element_size() for t in _tensors((args, out)))
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / HBM_BYTES_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+class Results:
+    """Per kernel: the worst max|d| over phase 3 and the main shape's times."""
+
+    def __init__(self):
+        self.kernels = {name: {"max_abs_err": 0.0} for name in KERNELS}
+
+    def case(self, name, tag, kernel, plain, args, dtype_name, main=False, library=None,
+             work_share=1.0):
+        import torch
+
+        out = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        pairs = list(zip(_tensors(out), _tensors(ref)))
+        err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
+        if dtype_name == "float32":
+            tol = F32_TOL[name]
+            ok = all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in pairs)
+            what = f"atol=rtol={tol}"
+        else:
+            ok = all(bool(((a.float() - b.float()).abs()
+                           <= BF16_ATOL + BF16_RTOL * b.float().abs()).all()) for a, b in pairs)
+            what = f"atol {BF16_ATOL} rtol 2^-6"
+        ms = cuda_time(lambda: kernel(*args))
+        plain_ms = cuda_time(lambda: plain(*args))
+        bound_ms, bound_by = bound(plain, args, out, dtype_name, work_share)
+        lib_ms = None if library is None else cuda_time(library)
+        lib = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
+        log(f"{name} {tag} {dtype_name}: max|d| {err:.3e} ({what}) kernel {ms:.4f} ms"
+            f" plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}){lib}")
+        require(ok, f"{name} disagrees with its plain version at {tag} {dtype_name}")
+        rec = self.kernels[name]
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if main:
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=lib_ms)
 
 
 def phase_device():
@@ -82,55 +178,49 @@ def phase_device():
 def phase_build():
     from rosettafold_tpu_torch.ops.cuda import build
 
-    for name in ("tied_attention", "se3_attend"):
-        t0 = time.perf_counter()
+    t0 = time.perf_counter()
+    build.build_all(list(KERNELS))
+    log(f"build: {len(build.build_log)} kernels in {time.perf_counter() - t0:.2f} s")
+    for name in KERNELS:
         build.load(name)
-        secs, out = build.build_log.get(name, (time.perf_counter() - t0, ""))
+        secs, out = build.build_log.get(name, (0.0, ""))
         log(f"build {name}: {secs:.2f} s")
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log("  " + line.strip())
 
 
-def phase_tied():
+def _dt(name):
     import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def phase_tied(res):
+    import torch
+    import torch.nn.functional as F
 
     from rosettafold_tpu_torch.ops.cuda import tied_attention as ta
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    worst, main = 0.0, None
-    for L in (64, 100, 120):
+    for L in (120, 128, 250):
+        BH = (4 if L <= 128 else 1) * 12
         for N in (8, 64):
-            for dtype in (torch.float32, torch.bfloat16):
-                BH, ND = 4 * 12, N * 32
-                q, k = (torch.randn(BH, L, ND, device="cuda", generator=g) * 0.3
-                        for _ in range(2))
-                v = torch.randn(BH, L, ND, device="cuda", generator=g)
-                q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-                out, lse = ta.tied_attention_forward(q, k, v)
-                ref, ref_lse = ta.tied_attention_plain(q, k, v)
-                torch.cuda.synchronize()
-                err = float((out.float() - ref.float()).abs().max())
-                lse_err = float((lse - ref_lse).abs().max())
-                if dtype == torch.float32:
-                    atol, rtol = F32_ATOL, 0.0
-                else:
-                    atol, rtol = BF16_ATOL, BF16_RTOL
-                ok = bool(((out.float() - ref.float()).abs()
-                           <= atol + rtol * ref.float().abs()).all())
-                ms = cuda_time(lambda: ta.tied_attention_forward(q, k, v))
-                plain_ms = cuda_time(lambda: ta.tied_attention_plain(q, k, v))
-                name = str(dtype).split(".")[-1]
-                log(f"tied L={L} N={N} {name}: max|d| {err:.3e} (atol {atol} rtol {rtol})"
-                    f" lse {lse_err:.3e} kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-                require(ok and lse_err <= 1e-4, f"tied attention disagrees at L={L} N={N} {name}")
-                worst = max(worst, err)
-                if (L, N, dtype) == (120, 8, torch.bfloat16):  # the batched serving shape
-                    main = (ms, plain_ms)
-    return {"max_abs_err": worst, "ms": main[0], "plain_ms": main[1]}
+            ND = N * 32
+            q, k = (torch.randn(BH, L, ND, device="cuda", generator=g) * 0.3 for _ in range(2))
+            v = torch.randn(BH, L, ND, device="cuda", generator=g)
+            for dname in ("float32", "bfloat16"):
+                args = tuple(t.to(_dt(dname)) for t in (q, k, v))
+                main = (L, N, dname) == (128, 8, "bfloat16")  # the batched serving shape
+                lib = None
+                if main:
+                    qs, ks, vs = (t[:, None] for t in args)
+                    lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)  # noqa
+                res.case("tied_attention", f"B*H={BH} L={L} N={N}", ta.tied_attention_forward,
+                         ta.tied_attention_plain, args, dname, main=main, library=lib)
 
 
-def phase_se3():
+def phase_se3(res):
     import torch
 
     from rosettafold_tpu_torch.models.rosettafold import init_like_flax
@@ -138,7 +228,7 @@ def phase_se3():
     from rosettafold_tpu_torch.ops import knn, so3
     from rosettafold_tpu_torch.ops.cuda import se3_attend as sa
 
-    B, L, dev = 2, 96, "cuda"
+    B, L, dev = 4, 128, "cuda"  # the batched serving shape
     g = torch.Generator(device="cpu").manual_seed(1)
     se3 = SE3Transformer(num_layers=2, num_channels=16, n_heads=4, num_degrees=2,
                          l0_in_features=64, l1_in_features=3, l0_out_features=32,
@@ -148,12 +238,12 @@ def phase_se3():
     xyz = torch.randn(B, L, 3, 3, generator=g).to(dev) * 8.0
     aa = torch.arange(L, device=dev)[None].repeat(B, 1)
     mask = knn.incoming_mask(knn.knn_adjacency(xyz, aa, 64)).contiguous()
+    share = float(mask.float().mean())  # the kernel skips masked edges
     ca = xyz[:, :, 1]
     rel = ca[:, :, None, :] - ca[:, None, :, :]
     basis = {k: v.contiguous() for k, v in so3.equivariant_basis(rel, 1).items()}
     feat = torch.cat([torch.randn(B, L, L, 64, generator=g).to(dev),
                       so3.edge_radii(rel)], dim=-1).contiguous()
-    worst, times = 0.0, []
     for name in ("res_0", "res_1", "res_out"):
         mod = getattr(se3, name)
         h = {d: torch.randn(B, L, m, 2 * d + 1, generator=g).to(dev)
@@ -163,20 +253,94 @@ def phase_se3():
         with torch.no_grad():
             stacked = sa.stack_weights(mod.v, mod.k, mod.meta)
             args = (feat, basis, h, mask, qh, stacked, mod.meta)
-            z = sa.gse3_attend(*args)
-            ref = sa.se3_attend_plain(*args)
-            torch.cuda.synchronize()
-            err = max(float((z[d] - ref[d]).abs().max()) for d in ref)
-            rel_ok = all(torch.allclose(z[d], ref[d], rtol=SE3_TOL, atol=SE3_TOL) for d in ref)
-            ms = cuda_time(lambda: sa.gse3_attend(*args))
-            plain_ms = cuda_time(lambda: sa.se3_attend_plain(*args))
-        log(f"se3 {name} L={L} B={B}: max|d| {err:.3e} (rtol=atol={SE3_TOL})"
-            f" kernel {ms:.4f} ms plain {plain_ms:.4f} ms")
-        require(rel_ok, f"SE(3) attend disagrees at {name}")
-        worst = max(worst, err)
-        times.append((ms, plain_ms))
-    return {"max_abs_err": worst, "ms": sum(t[0] for t in times) / 3,
-            "plain_ms": sum(t[1] for t in times) / 3}
+            res.case("se3_attend", f"{name} B={B} L={L}", sa.gse3_attend, sa.se3_attend_plain,
+                     args, "float32", main=name == "res_1", work_share=share)
+
+
+def _normal(shape, std, g, dtype=None):
+    import torch
+
+    t = torch.randn(*shape, generator=g, device="cuda") * std
+    return t if dtype is None else t.to(dtype)
+
+
+def phase_pair_kernels(res):
+    """C, D, E, F at the serving shapes: (B, L) = (4, 128) and (1, 250)."""
+    import torch
+    import torch.nn.functional as F
+
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import conv3x3 as cv
+    from rosettafold_tpu_torch.ops.cuda import fused_ff as ff
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+    from rosettafold_tpu_torch.ops.cuda import outer_product as op
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    D, HD, FF = 288, 512, 1152
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
+    for B, L in ((4, 128), (1, 250)):
+        x32 = _normal((B, L, L, D), 1.0, g)
+        gam = 1.0 + _normal((D,), 0.1, g)
+        bet = _normal((D,), 0.1, g)
+        for dname in ("float32", "bfloat16"):
+            dt = _dt(dname)
+            x = x32.to(dt)
+            main = (B, L, dname) == (4, 128, "bfloat16")
+            shape = f"B={B} L={L}"
+            # C: row step (axis 1) and column step, with and without LN/residual
+            w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
+            w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
+            statics = (64 ** -0.25, 1e-3, 8, 64)
+            for axis in (1, 2):
+                for lnres in (True, False):
+                    xin = x if axis == 1 else x.reshape(B * L, L, D)
+                    if lnres:
+                        fn = (fp.fused_ln_performer_residual_axis1 if axis == 1
+                              else fp.fused_ln_performer_residual)
+                        args = (xin, gam, bet, *w, *statics, 1e-5)
+
+                        def plain(x_, g_, b_, *rest, ax=axis):
+                            return fp.performer_plain(x_, (g_, b_, rest[-1]), *rest[:-1], ax)
+                    else:
+                        fn = (fp.fused_performer_layer_axis1 if axis == 1
+                              else fp.fused_performer_layer)
+                        args = (xin, *w, *statics)
+
+                        def plain(x_, *rest, ax=axis):
+                            return fp.performer_plain(x_, None, *rest, ax)
+                    res.case("fused_performer",
+                             f"{shape} axis {axis} {'LN+residual' if lnres else 'no LN'}",
+                             fn, plain, args, dname, main=main and axis == 1 and lnres)
+            # D
+            args = (x, gam, bet, _normal((D, FF), D ** -0.5, g, dt), _normal((FF,), 0.1, g),
+                    _normal((FF, D), FF ** -0.5, g, dt), _normal((D,), 0.1, g), 1e-5)
+            res.case("fused_ff", shape, ff.fused_ln_ff_residual, ff.fused_ff_plain, args, dname,
+                     main=main)
+            # E
+            for N in (8, 64):
+                xo = _normal((B, N, L, 32), 1.0, g)
+                yo = (xo * torch.rand(B, N, L, 1, generator=g, device="cuda")).to(dt)
+                args = (xo, yo, 1.0 + _normal((1024,), 0.1, g), _normal((1024,), 0.1, g),
+                        _normal((1024, D), 1 / 32, g, dt), _normal((D,), 0.1, g), 1e-5, dt)
+                res.case("outer_product", f"{shape} N={N}", op.fused_outer_product_mean,
+                         op.outer_product_plain, args, dname, main=main and N == 8)
+            # F
+            wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
+            pre = (1.0 + _normal((B, D), 0.1, g), _normal((B, D), 0.1, g))
+            for dil in (1, 2, 4, 8):
+                for with_pre in (False, True):
+                    args = (x, wc, pre if with_pre else None, dil, dt)
+                    is_main = main and dil == 1 and not with_pre
+                    lib = None
+                    if is_main:  # one cuDNN call, channels_last, no pre-op
+                        xn = x.permute(0, 3, 1, 2)
+                        wn = wc.permute(3, 2, 0, 1).contiguous(
+                            memory_format=torch.channels_last)
+                        lib = lambda: F.conv2d(xn, wn, padding=1)  # noqa: E731
+                    res.case("conv3x3", f"{shape} dilation {dil}{' pre-op' if with_pre else ''}",
+                             cv.conv3x3_fused, cv.conv3x3_plain, args, dname, main=is_main,
+                             library=lib)
+            del x
 
 
 def _check_outputs(logits, xyz, plddt, B, L):
@@ -192,50 +356,89 @@ def _check_outputs(logits, xyz, plddt, B, L):
     require(plddt.shape == (B, L) and bool(torch.isfinite(plddt).all()), "plddt")
 
 
-def phase_serving():
+def _counters():
+    import importlib
+
+    return {n: importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{n}") for n in KERNELS}
+
+
+def _timed_forwards(model, args, n):
+    import torch
+
+    times = []
+    with torch.inference_mode():
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = model(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return out, times
+
+
+def _batch_inputs(B, N, L):
     import numpy as np
     import torch
 
-    from rosettafold_tpu.data.a3m import load_a3m, msa_features
-    from rosettafold_tpu_torch import predict as P
-    from rosettafold_tpu_torch.ops.cuda import se3_attend as sa
-    from rosettafold_tpu_torch.ops.cuda import tied_attention as ta
+    from rosettafold_tpu_torch.data.a3m import load_a3m, msa_features
 
-    model = P.build_model(P.fast_config(max(c for c, _ in REQUESTS)), device="cuda", seed=0)
-    n_fwd = 0
-    ta.launches = sa.launches = 0  # count only the main path from here
-    for crop, n_seq in REQUESTS:
-        logits, xyz, plddt, (msa, _, _), fwd_s = P.predict(
-            A3M, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
-            model=model)
-        n_fwd += 2
-        _check_outputs(logits, xyz, plddt, 1, crop)
-        log(f"request crop={crop} n_seq={msa.shape[1]}: warm forward {fwd_s * 1e3:.2f} ms")
-        require((ta.launches, sa.launches) == (TIED_PER_FWD * n_fwd, SE3_PER_FWD * n_fwd),
-                f"launches {ta.launches}, {sa.launches} after {n_fwd} forwards")
-
-    B, N, L = BATCH
     tokens = load_a3m(A3M)
     rows = [msa_features(np.ascontiguousarray(tokens[:, o:]), n_seq=N, crop_len=L)[0]
-            for o in (0, 40, 80, 120)]
-    msa = torch.as_tensor(np.concatenate(rows[:B]), device="cuda")
+            for o in (0, 40, 80, 120)[:B]]
+    msa = torch.as_tensor(np.concatenate(rows), device="cuda")
     aa = torch.arange(L, device="cuda")[None].repeat(B, 1)
-    with torch.inference_mode():
-        for i in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, xyz, plddt = model(msa, msa[:, 0], aa)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
-            n_fwd += 1
-    _check_outputs(logits, xyz, plddt, B, L)
-    log(f"batched forward B={B} N={N} L={L}: warm {dt * 1e3:.2f} ms")
-    counts = (ta.launches, sa.launches)
-    require(counts == (TIED_PER_FWD * n_fwd, SE3_PER_FWD * n_fwd),
-            f"launches {counts} after {n_fwd} forwards")
-    log(f"main path: {n_fwd} forwards, {counts[0]} tied-attention and {counts[1]}"
-        " SE(3)-attend launches")
-    return counts
+    return msa, msa[:, 0], aa
+
+
+def phase_serving():
+    import torch
+
+    from rosettafold_tpu_torch import predict as P
+
+    model = P.build_model(P.fast_config(max(c for c, _ in REQUESTS)), device="cuda", seed=0)
+    mods = _counters()
+    expected = dict.fromkeys(KERNELS, 0)
+
+    def add(L, n):
+        for name, (_, _, per_fwd) in KERNELS.items():
+            if L >= 128 or name not in PAIR_KERNELS:
+                expected[name] += per_fwd * n
+
+    def check(what):
+        counts = {n: m.launches for n, m in mods.items()}
+        require(counts == expected, f"launches {counts} != {expected} after {what}")
+
+    readings = {}
+    for m in mods.values():
+        m.launches = 0  # count only the main path from here
+    for crop, n_seq in REQUESTS:
+        logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
+            A3M, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
+            model=model)
+        L = msa.shape[-1]
+        _check_outputs(logits, xyz, plddt, 1, L)
+        args = [torch.as_tensor(a, device="cuda") for a in (msa, seq, aa)]
+        _, times = _timed_forwards(model, args, REPS)
+        add(L, 2 + REPS)
+        check(f"request L={L}")
+        med = statistics.median(times)
+        readings[f"request L={L} n_seq={msa.shape[1]}"] = med
+        log(f"request crop={crop} L={L} n_seq={msa.shape[1]}: warm forward {fwd_s * 1e3:.2f} ms;"
+            f" {REPS} more: median {med:.2f} ms, min {min(times):.2f}, max {max(times):.2f}")
+    for B, N, L in BATCHES:
+        args = _batch_inputs(B, N, L)
+        (logits, xyz, plddt), times = _timed_forwards(model, args, 1 + REPS)
+        _check_outputs(logits, xyz, plddt, B, L)
+        add(L, 1 + REPS)
+        check(f"batch B={B} N={N} L={L}")
+        med = statistics.median(times[1:])
+        readings[f"batch B={B} N={N} L={L}"] = med
+        log(f"batched forward B={B} N={N} L={L}: {REPS} warm, median {med:.2f} ms"
+            f" ({B * L * L / med * 1e3:.0f} pairs/s), min {min(times[1:]):.2f},"
+            f" max {max(times[1:]):.2f}")
+    counts = {n: m.launches for n, m in mods.items()}
+    log("main path launches: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+    return counts, model
 
 
 def phase_e2e():
@@ -243,21 +446,51 @@ def phase_e2e():
 
     from rosettafold_tpu_torch import predict as P
 
-    crop, n_seq = REQUESTS[1]
-    base = dataclasses.replace(P.fast_config(crop), compute_dtype="float32")
-    out = {}
-    for impl in ("pallas", "xla"):
-        model = P.build_model(dataclasses.replace(base, attn_impl=impl), device="cuda", seed=0)
-        logits, xyz, plddt, _, _ = P.predict(A3M, n_seq=n_seq, crop=crop, device="cuda",
+    for crop, n_seq in ((96, 32), (128, 32)):
+        base = dataclasses.replace(P.fast_config(crop), compute_dtype="float32")
+        out = {}
+        for impl in ("pallas", "xla"):
+            model = P.build_model(dataclasses.replace(base, attn_impl=impl), device="cuda",
+                                  seed=0)
+            logits, xyz, _, _, _ = P.predict(A3M, n_seq=n_seq, crop=crop, device="cuda",
                                              model=model)
-        out[impl] = (logits, xyz)
-    d_logits = max(float((out["pallas"][0][k] - out["xla"][0][k]).abs().max())
-                   for k in out["xla"][0])
-    d_xyz = float((out["pallas"][1] - out["xla"][1]).abs().max())
-    log(f"end to end f32 kernels vs plain (crop {crop}, n_seq {n_seq}): logits max|d|"
-        f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ})")
-    require(d_logits <= E2E_LOGITS and d_xyz <= E2E_XYZ,
-            "kernel path leaves the full-depth envelope")
+            out[impl] = (logits, xyz)
+            del model
+        d_logits = max(float((out["pallas"][0][k] - out["xla"][0][k]).abs().max())
+                       for k in out["xla"][0])
+        d_xyz = float((out["pallas"][1] - out["xla"][1]).abs().max())
+        log(f"end to end f32 kernels vs plain (crop {crop}, n_seq {n_seq}): logits max|d|"
+            f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ})")
+        require(d_logits <= E2E_LOGITS and d_xyz <= E2E_XYZ,
+                f"kernel path leaves the full-depth envelope at crop {crop}")
+
+
+def phase_profile(model):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _batch_inputs(4, 8, 128)
+    _timed_forwards(model, args, 1)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _timed_forwards(model, args, 1)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    on_device = [e for e in events if "CUDA" in str(e.device_type)]  # the kernels
+    ops = [e for e in events if "CUDA" not in str(e.device_type)]    # host operators
+    total = sum(dev(e) for e in on_device) / 1e3
+    log(f"profile B=4 N=8 L=128: wall {wall:.2f} ms, device time {total:.2f} ms,"
+        f" busy {total / wall:.3f}, {sum(e.count for e in on_device)} device kernel calls")
+    log("  top operators by self device time:")
+    for e in sorted(ops, key=dev, reverse=True)[:12]:
+        log(f"  {dev(e) / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
+    log("  top device kernels:")
+    for e in sorted(on_device, key=dev, reverse=True)[:10]:
+        log(f"  {dev(e) / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
 
 
 def main() -> int:
@@ -275,26 +508,29 @@ def main() -> int:
         print("chip_smoke.py: no CUDA card; the port's kernels run only on one",
               file=sys.stderr)
         return 2
+    res = Results()
     try:
+        t0 = time.perf_counter()
         phase_device()
         phase_build()
-        tied = phase_tied()
-        se3 = phase_se3()
-        counts = phase_serving()
+        phase_tied(res)
+        phase_se3(res)
+        phase_pair_kernels(res)
+        log(f"phases 1-3: {time.perf_counter() - t0:.1f} s")
+        counts, model = phase_serving()
+        log(f"phases 1-4: {time.perf_counter() - t0:.1f} s")
+        phase_profile(model)
+        del model
         phase_e2e()
+        log(f"all phases: {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
-    kernels = [
-        {"name": "tied_attention", "route": "cuda",
-         "source": "rosettafold_tpu_torch/csrc/tied_attention.cu",
-         "replaces": "rosettafold_tpu/ops/pallas/tied_attention.py:99",
-         "launches": counts[0], **tied},
-        {"name": "se3_attend", "route": "cuda",
-         "source": "rosettafold_tpu_torch/csrc/se3_attend.cu",
-         "replaces": "rosettafold_tpu/ops/pallas/se3_attend.py:486",
-         "launches": counts[1], **se3},
-    ]
+    kernels = [{"name": name, "route": "cuda",
+                "source": f"rosettafold_tpu_torch/csrc/{src}",
+                "replaces": f"rosettafold_tpu/ops/pallas/{tpu}",
+                "launches": counts[name], **res.kernels[name]}
+               for name, (src, tpu, _) in KERNELS.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,20 +2,18 @@
 
 The JAX package (`rosettafold_tpu`) is the reference; this package is held
 against it module by module (tests/test_torch_*.py). It imports torch and
-numpy only; from the JAX package it reads just the numpy-only modules
-(`rosettafold_tpu.config`, `rosettafold_tpu.data.{a3m,pdb,vocab}`).
+numpy only, and nothing of the JAX package: `config` and `data` are its own
+copies of the numpy-only modules it needs, held equal by tests.
 
-Configuration is the shared `RoseTTAFoldConfig`. In this package
-`attn_impl="pallas"` means "the hand-written kernel suite": the CUDA C++
-kernels under `csrc/`, so that `predict.fast_config(L)` stays identical to the
-JAX serving preset. Kernels ported so far: the tied row attention and the
-dense SE(3) attend. With `attn_impl="pallas"` and L >= 128 the model raises
-NotImplementedError, because the fused FAVOR+, FF, outer-product and 3x3 conv
-kernels that JAX engages there are not ported yet. `attn_impl="xla"` runs
-plain PyTorch at any L.
+In this package `attn_impl="pallas"` means "the hand-written kernel suite":
+the CUDA C++ kernels under `csrc/`, so that `predict.fast_config(L)` stays
+identical to the JAX serving preset. All six forward kernels of the serving
+path are ported: tied row attention (A), dense SE(3) attend (B), fused
+LN + FAVOR+ + residual (C), fused LN + FF + residual (D), fused outer-product
+mean (E) and the 3x3 conv (F). `attn_impl="xla"` runs plain PyTorch at any L.
 """
 
-from rosettafold_tpu.config import PerformerConfig, RoseTTAFoldConfig, tiny_config
+from .config import PerformerConfig, RoseTTAFoldConfig, tiny_config
 
 __all__ = ["RoseTTAFoldConfig", "PerformerConfig", "tiny_config", "RoseTTAFold"]
 

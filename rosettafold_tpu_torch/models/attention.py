@@ -1,4 +1,4 @@
-"""FeedForward and FAVOR+ self-attention (port of the non-fused path of
+"""FeedForward and FAVOR+ self-attention (port of
 rosettafold_tpu/models/attention.py)."""
 
 from __future__ import annotations
@@ -9,7 +9,8 @@ import torch
 from torch import nn
 
 from ..ops import performer as favor
-from .layers import FUSED_MIN_L, Dense, require_unported
+from ..ops.cuda import fused_performer as fp
+from .layers import FUSED_MIN_L, Dense, layer_norm
 
 
 class FeedForward(nn.Module):
@@ -31,15 +32,22 @@ class PerformerSelfAttention(nn.Module):
     heads*dim_head, a fixed random-feature projection (a registered buffer
     built from `feature_seed`), output projection, dropout on the output.
 
-    With attn_impl="pallas" the JAX package runs the generalized mode through
-    the fused kernel C from L >= 128; that kernel is not ported, so this
-    module raises there instead of running the plain math."""
+    With attn_impl="pallas", the generalized (ReLU) mode and an attended
+    length of at least `fused_favor_min_l` (default 128, as JAX), the layer
+    runs as kernel C (ops/cuda/fused_performer.py). Both axes are read in
+    place through strides; JAX takes the strided read only when L1 % 128 == 0
+    and L1 <= 256 and otherwise transposes, which is the same math.
+
+    forward(x, ln_params=(weight, bias, eps)) computes the whole pre-LN
+    residual step x + dropout(attn(LN(x))); on the kernel path, with dropout
+    inactive, the LN and the residual fold into the kernel."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  nb_features: Optional[int] = None,
                  generalized_attention: bool = False, p_dropout: float = 0.0,
                  feature_seed: int = 42, kernel_eps: float = 1e-3,
                  softmax_eps: float = 1e-4, attn_impl: str = "xla",
+                 fused_favor_min_l: Optional[int] = None,
                  attend_axis: int = -2, dtype=None):
         super().__init__()
         assert attend_axis in (-2, 1)
@@ -47,6 +55,8 @@ class PerformerSelfAttention(nn.Module):
         self.generalized = generalized_attention
         self.kernel_eps, self.softmax_eps = kernel_eps, softmax_eps
         self.attn_impl, self.attend_axis = attn_impl, attend_axis
+        self.fused_favor_min_l = FUSED_MIN_L if fused_favor_min_l is None else fused_favor_min_l
+        self.p_dropout, self.dtype = p_dropout, dtype
         inner = heads * dim_head
         m = nb_features or favor.default_nb_features(dim_head)
         self.register_buffer("projection", torch.from_numpy(
@@ -62,13 +72,43 @@ class PerformerSelfAttention(nn.Module):
         t = t.reshape(*t.shape[:-1], self.heads, self.dim_head)
         return t.movedim(-2, -3)
 
-    def forward(self, x):
+    def forward(self, x, ln_params=None):
         if self.attend_axis == 1:
             assert x.ndim == 4
         attended = x.shape[1] if self.attend_axis == 1 else x.shape[-2]
-        if (self.attn_impl == "pallas" and self.generalized
-                and attended >= FUSED_MIN_L):
-            require_unported("fused_performer", attended)
+        use_fused = (self.attn_impl == "pallas" and self.generalized
+                     and attended >= self.fused_favor_min_l)
+        if use_fused and ln_params is not None and (
+                not self.training or self.p_dropout == 0.0):
+            return self._fused(x, ln_params)
+        residual = None
+        if ln_params is not None:
+            residual = x
+            x = layer_norm(x, *ln_params).to(x.dtype)
+        out = self.dropout(self._fused(x, None) if use_fused else self._plain(x))
+        return out if residual is None else residual + out
+
+    def _fused(self, x, ln_params):
+        """Kernel C: x + attn(LN(x)) with ln_params, attn(x) without."""
+        cdt = self.dtype or x.dtype
+        x = x.to(cdt).contiguous()
+        w = [lin.weight.t().to(cdt) for lin in (self.to_q, self.to_k, self.to_v, self.to_out)]
+        args = (*w, self.to_out.bias.to(cdt), self.projection, self.dim_head ** -0.25,
+                self.kernel_eps, self.heads, self.dim_head)
+        if self.attend_axis == 1:
+            if ln_params is None:
+                return fp.fused_performer_layer_axis1(x, *args)
+            g, b, eps = ln_params
+            return fp.fused_ln_performer_residual_axis1(x, g.float(), b.float(), *args, eps)
+        x3 = x.reshape(-1, *x.shape[-2:])
+        if ln_params is None:
+            out = fp.fused_performer_layer(x3, *args)
+        else:
+            g, b, eps = ln_params
+            out = fp.fused_ln_performer_residual(x3, g.float(), b.float(), *args, eps)
+        return out.reshape(x.shape)
+
+    def _plain(self, x):
         if self.attend_axis == 1:
             x = x.transpose(1, 2)
         q = self._split_heads(self.to_q(x))
@@ -81,4 +121,4 @@ class PerformerSelfAttention(nn.Module):
         out = self.to_out(out.reshape(*out.shape[:-2], -1))
         if self.attend_axis == 1:
             out = out.transpose(1, 2)
-        return self.dropout(out)
+        return out

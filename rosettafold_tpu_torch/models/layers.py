@@ -17,25 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-# JAX package ROADMAP.md items of the kernels this port has not written yet.
-UNPORTED_KERNELS = {
-    "fused_performer": "C (ops/pallas/fused_performer.py, ROADMAP queue 2 item 1)",
-    "fused_ff": "D (ops/pallas/fused_ff.py, ROADMAP queue 2 item 2)",
-    "outer_product": "E (ops/pallas/outer_product.py, ROADMAP queue 2 item 3)",
-    "conv3x3": "F (ops/pallas/conv3x3.py, ROADMAP queue 2 item 4)",
-}
-
-# L from which the JAX package engages the fused pair-track kernels
+# L from which the JAX package engages the fused pair-track kernels (C, D, E,
+# F): the default of each module's crossover field
 FUSED_MIN_L = 128
-
-
-def require_unported(name: str, L: int):
-    """Raise where the JAX package would run a kernel this port lacks: the
-    port never runs the plain math in place of a kernel."""
-    raise NotImplementedError(
-        f"attn_impl='pallas' at L={L} >= {FUSED_MIN_L} runs kernel "
-        f"{UNPORTED_KERNELS[name]}, which is not ported to CUDA yet; "
-        "use attn_impl='xla' (plain PyTorch) or L < 128")
 
 
 def torch_dtype(name: Optional[str]):

@@ -1,9 +1,10 @@
 """Pair-track modules (port of rosettafold_tpu/models/pair.py, unchunked).
 
 With attn_impl="pallas" the JAX package runs the fused outer-product (E),
-3x3 conv (F), FAVOR+ (C) and FF (D) kernels from L >= 128. Those are not
-ported yet, so these modules raise there; below L = 128 JAX runs plain XLA
-math, and so does this port.
+3x3 conv (F), FAVOR+ (C) and FF (D) kernels from L >= 128, and so does this
+port, through the CUDA kernels of ops/cuda/. Each module's crossover field
+(`fused_min_l`, `conv_fused_min_l`, `fused_favor_min_l`, `ff_fused_min_l`,
+default 128 as in JAX) moves that point; below it both run plain math.
 """
 
 from __future__ import annotations
@@ -12,10 +13,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda.fused_ff import fused_ln_ff_residual
+from ..ops.cuda.outer_product import fused_outer_product_mean
 from .attention import FeedForward, PerformerSelfAttention
-from .layers import FUSED_MIN_L, ConvNHWC, Dense, LayerNorm, layer_norm, require_unported
+from .layers import FUSED_MIN_L, ConvNHWC, Dense, LayerNorm
 from .msa import PositionWiseWeightFactor
-from .resnet import InstanceNorm2d
+from .resnet import InstanceNorm2d, conv_block_kernels
 
 LN_EPS = 1e-5
 
@@ -28,9 +31,11 @@ def symmetrize(x: torch.Tensor) -> torch.Tensor:
 class OuterProductMean(nn.Module):
     """Outer-product sum over MSA rows -> pair features, then LN + Linear."""
 
-    def __init__(self, in_features: int, out_features: int, impl: str = "xla", dtype=None):
+    def __init__(self, in_features: int, out_features: int, impl: str = "xla",
+                 fused_min_l: int = FUSED_MIN_L, dtype=None):
         super().__init__()
         self.in_features, self.impl, self.dtype = in_features, impl, dtype
+        self.fused_min_l = fused_min_l
         self.ln = LayerNorm(in_features ** 2, LN_EPS)
         self.to_out = Dense(in_features ** 2, out_features, dtype=dtype)
 
@@ -38,9 +43,12 @@ class OuterProductMean(nn.Module):
         y = x if y is None else y
         if self.dtype is not None:
             x, y = x.to(self.dtype), y.to(self.dtype)
-        L = x.shape[2]
-        if self.impl == "pallas" and L >= FUSED_MIN_L:
-            require_unported("outer_product", L)
+        if self.impl == "pallas" and x.shape[2] >= self.fused_min_l:
+            # kernel E: the (B, L, L, u*u) outer product never materializes
+            return fused_outer_product_mean(
+                x.float(), y, self.ln.weight, self.ln.bias,
+                self.to_out.weight.t().to(x.dtype), self.to_out.bias.float(), LN_EPS,
+                self.dtype or torch.float32)
         op = torch.einsum("bniu,bnjv->bijuv", x, y)
         op = op.reshape(*op.shape[:3], self.in_features ** 2)
         return self.to_out(self.ln(op))
@@ -53,9 +61,11 @@ class PairUpdateWithMsa(nn.Module):
     residual block (3x3, InstanceNorm, ELU)."""
 
     def __init__(self, d_msa: int, d_proj: int = 32, d_pair: int = 288, n_heads: int = 12,
-                 p_dropout: float = 0.1, attn_impl: str = "xla", dtype=None):
+                 p_dropout: float = 0.1, attn_impl: str = "xla",
+                 conv_fused_min_l: int = FUSED_MIN_L, dtype=None):
         super().__init__()
         self.d_pair, self.attn_impl, self.dtype = d_pair, attn_impl, dtype
+        self.conv_fused_min_l = conv_fused_min_l
         self.proj_msa_ln_in = LayerNorm(d_msa, LN_EPS)
         self.proj_msa = Dense(d_msa, d_proj)
         self.proj_msa_ln_out = LayerNorm(d_proj, LN_EPS)
@@ -73,8 +83,6 @@ class PairUpdateWithMsa(nn.Module):
 
     def forward(self, msa, pair, att):
         L = msa.shape[2]
-        if self.attn_impl == "pallas" and L >= FUSED_MIN_L:
-            require_unported("conv3x3", L)
         m = self.proj_msa_ln_out(self.proj_msa(self.proj_msa_ln_in(msa)))
         w = self.poswise_weight(m)[:, :, 0]  # (B, N, L, 1)
         coevol = self.outer_product_mean(m, m * w)
@@ -95,6 +103,8 @@ class PairUpdateWithMsa(nn.Module):
              + col_proj[:, None, :, :]
              + self.resnet_in.bias.to(ct))
 
+        if self.attn_impl == "pallas" and L >= self.conv_fused_min_l:
+            return conv_block_kernels(self, x, 1)
         y = F.elu(self.in1(self.conv1(x)))
         y = self.in2(self.conv2(self.dropout(y)))
         out = F.elu(x.float() + y)
@@ -104,16 +114,21 @@ class PairUpdateWithMsa(nn.Module):
 class PairUpdateWithAxialAttentionLayer(nn.Module):
     """Axial FAVOR+ (generalized ReLU kernel) over the pair map: row step
     (attend over axis 1), column step (axis 2), each a pre-LN residual, then a
-    pre-LN FF residual."""
+    pre-LN FF residual. With attn_impl="pallas" the attention steps take the
+    LN parameters (kernel C folds LN and residual in from `fused_favor_min_l`)
+    and the FF step runs as kernel D from `ff_fused_min_l`, when dropout is
+    inactive."""
 
     def __init__(self, d_pair: int, d_ff: int, n_heads: int = 8, p_dropout: float = 0.1,
                  feature_seed: int = 42, performer_dim_head: int = 64,
-                 attn_impl: str = "xla", dtype=None):
+                 attn_impl: str = "xla", fused_favor_min_l=None,
+                 ff_fused_min_l: int = FUSED_MIN_L, dtype=None):
         super().__init__()
         self.attn_impl, self.dtype = attn_impl, dtype
+        self.ff_fused_min_l, self.p_dropout = ff_fused_min_l, p_dropout
         kw = dict(dim=d_pair, heads=n_heads, dim_head=performer_dim_head,
                   p_dropout=p_dropout, generalized_attention=True,
-                  attn_impl=attn_impl, dtype=dtype)
+                  attn_impl=attn_impl, fused_favor_min_l=fused_favor_min_l, dtype=dtype)
         self.row_attn = PerformerSelfAttention(feature_seed=feature_seed, attend_axis=1, **kw)
         self.col_attn = PerformerSelfAttention(feature_seed=feature_seed + 1, **kw)
         self.ln_row = LayerNorm(d_pair, LN_EPS)
@@ -125,18 +140,21 @@ class PairUpdateWithAxialAttentionLayer(nn.Module):
         if self.dtype is not None:
             x = x.to(self.dtype)
         if self.attn_impl == "pallas":
-            # JAX hands the LN to the attention module here, which normalizes
-            # and casts back to the stream dtype before attending
-            x = x + self.row_attn(layer_norm(
-                x, self.ln_row.weight, self.ln_row.bias, LN_EPS).to(x.dtype))
-            x = x + self.col_attn(layer_norm(
-                x, self.ln_col.weight, self.ln_col.bias, LN_EPS).to(x.dtype))
+            # as JAX: the attention module normalizes (in the kernel or
+            # before attending) and adds the residual itself
+            x = self.row_attn(x, ln_params=(self.ln_row.weight, self.ln_row.bias, LN_EPS))
+            x = self.col_attn(x, ln_params=(self.ln_col.weight, self.ln_col.bias, LN_EPS))
         else:
             x = x + self.row_attn(self.ln_row(x))
             x = x + self.col_attn(self.ln_col(x))
-        L = x.shape[1]
-        if self.attn_impl == "pallas" and L >= FUSED_MIN_L:
-            require_unported("fused_ff", L)
+        if (self.attn_impl == "pallas" and x.shape[1] >= self.ff_fused_min_l
+                and (not self.training or self.p_dropout == 0.0)):
+            cdt = self.dtype or x.dtype
+            ff = self.ff
+            return fused_ln_ff_residual(
+                x.contiguous(), self.ln_ff.weight.float(), self.ln_ff.bias.float(),
+                ff.fc1.weight.t().to(cdt), ff.fc1.bias.float(),
+                ff.fc2.weight.t().to(cdt), ff.fc2.bias.float(), LN_EPS)
         return x + self.ff(self.ln_ff(x))
 
 
@@ -145,13 +163,16 @@ class PairUpdateWithAxialAttention(nn.Module):
 
     def __init__(self, d_pair: int, d_ff: int, n_heads: int = 8, p_dropout: float = 0.1,
                  n_encoder_layers: int = 4, feature_seed: int = 42,
-                 performer_dim_head: int = 64, attn_impl: str = "xla", dtype=None):
+                 performer_dim_head: int = 64, attn_impl: str = "xla",
+                 fused_favor_min_l=None, ff_fused_min_l: int = FUSED_MIN_L, dtype=None):
         super().__init__()
         self.n = n_encoder_layers
         for i in range(n_encoder_layers):
             self.add_module(f"layer_{i}", PairUpdateWithAxialAttentionLayer(
                 d_pair, d_ff, n_heads, p_dropout, feature_seed=feature_seed + 2 * i,
-                performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype))
+                performer_dim_head=performer_dim_head, attn_impl=attn_impl,
+                fused_favor_min_l=fused_favor_min_l, ff_fused_min_l=ff_fused_min_l,
+                dtype=dtype))
 
     def forward(self, x):
         for i in range(self.n):

@@ -24,7 +24,7 @@ from torch import nn
 
 from .embeddings import MsaEmbedding, PairEmbedding
 from .heads import PredictionHead
-from .layers import FUSED_MIN_L, UNPORTED_KERNELS, ConvNHWC, Dense, torch_dtype
+from .layers import ConvNHWC, Dense, torch_dtype
 from .msa import MsaUpdateUsingSelfAttention, MsaUpdateWithPair, MsaUpdateWithPairAndCoord
 from .pair import PairUpdateWithAxialAttention, PairUpdateWithMsa
 from .structure import CoordUpdateWithMsaAndPair, InitialCoordGenerationWithMsaAndPair
@@ -145,12 +145,6 @@ class RoseTTAFold(nn.Module):
 
     def forward(self, msa, seq, aa_idx):
         cfg = self.config
-        L = msa.shape[-1]
-        if cfg.attn_impl == "pallas" and L >= FUSED_MIN_L:
-            raise NotImplementedError(
-                f"attn_impl='pallas' at L={L} >= {FUSED_MIN_L} runs kernels "
-                + "; ".join(UNPORTED_KERNELS.values())
-                + ", which are not ported to CUDA yet; use attn_impl='xla' or L < 128")
         x = self.msa_emb(msa, aa_idx)
         pair = self.pair_emb(seq, aa_idx)
         seq_onehot = F.one_hot(seq.long(), cfg.d_input).to(x.dtype)

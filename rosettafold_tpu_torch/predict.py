@@ -9,8 +9,8 @@ Usage:
 Without --params the weights are a random init drawn from --seed. --params
 takes a `torch.save`d state_dict of this port, e.g. one made from a JAX
 checkpoint with `bridge.state_dict_from_flax`. With `--preset fast` the CUDA
-kernels serve chains shorter than 128 residues; longer ones raise
-NotImplementedError until the pair-track kernels are ported.
+kernels serve chains up to 384 residues; above that the fast preset picks the
+bucketed SE(3) layout, which is not ported and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -23,10 +23,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rosettafold_tpu.config import RoseTTAFoldConfig
-from rosettafold_tpu.data.a3m import load_a3m, msa_features
-from rosettafold_tpu.data.pdb import write_pdb
-
+from .config import RoseTTAFoldConfig
+from .data.a3m import load_a3m, msa_features
+from .data.pdb import write_pdb
 from .models.rosettafold import RoseTTAFold
 
 

@@ -1,7 +1,18 @@
 """Helpers shared by the PyTorch port's parity tests (tests/test_torch_*.py)."""
 
+import dataclasses
+
 import jax
 import numpy as np
+
+from rosettafold_tpu_torch import config as tconfig
+
+
+def port_config(jcfg):
+    """The port's RoseTTAFoldConfig with the fields of a JAX package one."""
+    fields = dataclasses.asdict(jcfg)
+    fields["performer"] = tconfig.PerformerConfig(**fields["performer"])
+    return tconfig.RoseTTAFoldConfig(**fields)
 
 
 def random_params(jmod, *args, seed=0):

@@ -1,4 +1,6 @@
-"""The port's kernels A (tied attention) and B (dense SE(3) attend).
+"""The port's kernels: A (tied attention), B (dense SE(3) attend), C (fused
+LN + FAVOR+ + residual), D (fused LN + FF + residual), E (fused outer-product
+mean) and F (3x3 conv).
 
 On the CPU the wrappers run their plain PyTorch versions, which are held here
 against the JAX functions (Pallas interpret mode, or the file's own plain
@@ -17,6 +19,10 @@ from rosettafold_tpu_torch.models import se3 as tse3
 from rosettafold_tpu_torch.models.rosettafold import init_like_flax
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import so3 as tso3
+from rosettafold_tpu_torch.ops.cuda import conv3x3 as tconv
+from rosettafold_tpu_torch.ops.cuda import fused_ff as tff
+from rosettafold_tpu_torch.ops.cuda import fused_performer as tfp
+from rosettafold_tpu_torch.ops.cuda import outer_product as topm
 from rosettafold_tpu_torch.ops.cuda import se3_attend as tatt
 from rosettafold_tpu_torch.ops.cuda import tied_attention as ttied
 
@@ -27,6 +33,10 @@ try:  # the JAX reference: present on the CPU test host, absent beside the card
     from rosettafold_tpu.models import se3 as jse3
     from rosettafold_tpu.ops import knn as jknn
     from rosettafold_tpu.ops import so3 as jso3
+    from rosettafold_tpu.ops.pallas import conv3x3 as jconv
+    from rosettafold_tpu.ops.pallas import fused_ff as jff
+    from rosettafold_tpu.ops.pallas import fused_performer as jfp
+    from rosettafold_tpu.ops.pallas import outer_product as jopm
     from rosettafold_tpu.ops.pallas import se3_attend as jatt
     from rosettafold_tpu.ops.pallas import tied_attention as jtied
 except ImportError:
@@ -235,3 +245,234 @@ def test_se3_kernel_matches_plain_on_card(cuda, name):
     assert tatt.launches == before + 1
     for d in ref:
         torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
+
+
+# ------------------------------------------------------- pair-track kernels
+# C, D, E and F at tiny widths on the CPU; the JAX tolerances are those of
+# tests/test_pallas.py (C 3e-5, D 2e-5), tests/test_pair.py (E 2e-5) and
+# tests/test_conv3x3.py (F 2e-5 float32, 3e-2 bfloat16).
+
+
+def _affine(rng, n):
+    return ((1.0 + 0.1 * rng.normal(size=n)).astype(np.float32),
+            (0.1 * rng.normal(size=n)).astype(np.float32))
+
+
+def _ff_args(D=24, F=48, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, 6, 10, D)).astype(np.float32)
+    g, b = _affine(rng, D)
+    w1 = (rng.normal(size=(D, F)) * 0.2).astype(np.float32)
+    b1 = (0.1 * rng.normal(size=F)).astype(np.float32)
+    w2 = (rng.normal(size=(F, D)) * 0.2).astype(np.float32)
+    b2 = (0.1 * rng.normal(size=D)).astype(np.float32)
+    return x, g, b, w1, b1, w2, b2
+
+
+def test_ff_plain_matches_jax(needs_jax):
+    args = _ff_args()
+    j = jax.jit(jff.fused_ln_ff_residual, static_argnums=(7,))(*args, 1e-5)
+    before = tff.launches
+    t = tff.fused_ln_ff_residual(*map(torch.from_numpy, args), 1e-5)
+    assert tff.launches == before
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5)
+    np.testing.assert_allclose(t.numpy(), np.asarray(jff._xla_composed(*args, 1e-5)), atol=2e-5)
+
+
+def _conv_args(B=2, H=8, W=8, C=6, Co=5, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, C, Co)) * 0.1).astype(np.float32)
+    inv = (rng.normal(size=(B, C)) * 0.5 + 1.0).astype(np.float32)
+    shift = (rng.normal(size=(B, C)) * 0.1).astype(np.float32)
+    return x, w, (inv, shift)
+
+
+@pytest.mark.parametrize("dilation", [1, 2, 4, 8])
+@pytest.mark.parametrize("with_pre", [False, True])
+def test_conv_plain_matches_jax(needs_jax, dilation, with_pre):
+    x, w, pre = _conv_args()
+    pre = pre if with_pre else None
+    j = jconv.conv3x3_fused(x, w, pre, dilation, jnp.float32, 8)
+    tpre = None if pre is None else tuple(map(torch.from_numpy, pre))
+    t = tconv.conv3x3_fused(torch.from_numpy(x), torch.from_numpy(w), tpre, dilation)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        t.numpy(), np.asarray(jconv.shifted_gemm_conv(x, w, pre, dilation, jnp.float32)),
+        atol=2e-5, rtol=2e-5)
+
+
+def test_conv_plain_matches_jax_bf16(needs_jax):
+    x, w, pre = _conv_args(seed=1)
+    xb, wb = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
+    j = jconv.conv3x3_fused(xb, wb, pre, 2, jnp.bfloat16, 8)
+    t = tconv.conv3x3_fused(torch.from_numpy(x).bfloat16(), torch.from_numpy(w).bfloat16(),
+                            tuple(map(torch.from_numpy, pre)), 2)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_allclose(t.float().numpy(), np.asarray(j, np.float32), atol=3e-2,
+                               rtol=3e-2)
+
+
+def test_opm_plain_matches_jax(needs_jax):
+    rng = np.random.default_rng(0)
+    B, N, L, u, Dp = 1, 3, 14, 8, 20
+    x = rng.normal(size=(B, N, L, u)).astype(np.float32)
+    y = (x * rng.uniform(size=(B, N, L, 1))).astype(np.float32)
+    g, b = _affine(rng, u * u)
+    w = (rng.normal(size=(u * u, Dp)) / u).astype(np.float32)
+    bias = (0.1 * rng.normal(size=Dp)).astype(np.float32)
+    args = (x, y, g, b, w, bias)
+    j = jopm.fused_outer_product_mean(*args, 1e-5, jnp.float32)
+    before = topm.launches
+    t = topm.fused_outer_product_mean(*map(torch.from_numpy, args), 1e-5)
+    assert topm.launches == before
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=2e-5)
+    np.testing.assert_allclose(
+        t.numpy(), np.asarray(jopm.xla_reference(*args, 1e-5, jnp.float32)), atol=2e-5)
+
+
+def _performer_args(x_shape, seed=0, D=24, h=2, dh=16, m=32):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=x_shape + (D,)).astype(np.float32)
+    g, b = _affine(rng, D)
+    wq, wk, wv = ((rng.normal(size=(D, h * dh)) * 0.2).astype(np.float32) for _ in range(3))
+    wo = (rng.normal(size=(h * dh, D)) * 0.2).astype(np.float32)
+    bo = (0.1 * rng.normal(size=D)).astype(np.float32)
+    proj = rng.normal(size=(m, dh)).astype(np.float32)
+    return x, (g, b), (wq, wk, wv, wo, bo, proj), (dh ** -0.25, 1e-3, h, dh)
+
+
+# (axis, LN + residual): the row step (axis 1 of (B, L1, L2, D), which the
+# JAX kernel reads strided only at L1 % 128 == 0) and the (R, L, D) form
+@pytest.mark.parametrize("axis1", [False, True])
+@pytest.mark.parametrize("lnres", [True, False])
+def test_performer_plain_matches_jax(needs_jax, axis1, lnres):
+    x, ln, w, statics = _performer_args((1, 128, 8) if axis1 else (4, 20), seed=int(axis1))
+    fn = {(True, True): "fused_ln_performer_residual_axis1",
+          (True, False): "fused_performer_layer_axis1",
+          (False, True): "fused_ln_performer_residual",
+          (False, False): "fused_performer_layer"}[axis1, lnres]
+    jargs = (x, *ln, *w, *statics, 1e-5) if lnres else (x, *w, *statics)
+    static = tuple(range(len(jargs) - (5 if lnres else 4), len(jargs)))
+    j = jax.jit(getattr(jfp, fn), static_argnums=static)(*jargs)
+    T = torch.from_numpy
+    targs = ((T(x), *map(T, ln), *map(T, w), *statics, 1e-5) if lnres
+             else (T(x), *map(T, w), *statics))
+    before = tfp.launches
+    t = getattr(tfp, fn)(*targs)
+    assert tfp.launches == before
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=3e-5)
+    if not lnres and not axis1:
+        want = jfp.xla_reference(x, *w, *statics)
+        np.testing.assert_allclose(t.numpy(), np.asarray(want), atol=3e-5)
+
+
+@pytest.mark.parametrize("bad", ["ff_dtype", "conv_weight", "opm_x_dtype", "performer_rank"])
+def test_pair_kernel_wrappers_reject(bad):
+    T = torch.from_numpy
+    with pytest.raises((ValueError, TypeError)):
+        if bad == "ff_dtype":
+            x, g, b, w1, b1, w2, b2 = map(T, _ff_args())
+            tff.fused_ln_ff_residual(x, g, b, w1.double(), b1, w2, b2, 1e-5)
+        elif bad == "conv_weight":
+            x, w, _ = _conv_args()
+            tconv.conv3x3_fused(T(x), T(w)[:, :, :3], None, 1)
+        elif bad == "opm_x_dtype":
+            x = torch.zeros(1, 2, 4, 8, dtype=torch.bfloat16)
+            topm.fused_outer_product_mean(x, x, torch.ones(64), torch.zeros(64),
+                                          torch.zeros(64, 4, dtype=torch.bfloat16),
+                                          torch.zeros(4))
+        else:
+            x, ln, w, statics = _performer_args((4, 20))
+            tfp.fused_performer_layer_axis1(T(x), *map(T, w), *statics)
+
+
+# ---- on the card: each kernel against its plain version at serving width
+# bf16 bound: two bf16 ulps of the value (2^-6 relative) + 1e-2, as kernel A;
+# both sides round the same intermediates, in other summation orders.
+BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
+
+
+def _close(out, ref, f32_tol):
+    if out.dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=f32_tol, rtol=f32_tol)
+    else:
+        torch.testing.assert_close(out.float(), ref.float(), atol=BF16_ATOL, rtol=BF16_RTOL)
+
+
+def _card(a, cuda, dtype=torch.float32):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ff_kernel_matches_plain_on_card(cuda, dtype):
+    x, g, b, w1, b1, w2, b2 = _ff_args(D=288, F=1152)
+    w1, w2 = w1 / 4, w2 / 8
+    args = (_card(x, cuda, dtype), _card(g, cuda), _card(b, cuda), _card(w1, cuda, dtype),
+            _card(b1, cuda), _card(w2, cuda, dtype), _card(b2, cuda), 1e-5)
+    before = tff.launches
+    out = tff.fused_ln_ff_residual(*args)
+    ref = tff.fused_ff_plain(*args)
+    torch.cuda.synchronize()
+    assert tff.launches == before + 1
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation,with_pre", [(1, False), (2, True), (8, True)])
+def test_conv_kernel_matches_plain_on_card(cuda, dtype, dilation, with_pre):
+    x, w, pre = _conv_args(B=2, H=37, W=70, C=288, Co=288)
+    w = w / 4
+    tx, tw = _card(x, cuda, dtype), _card(w, cuda, dtype)
+    tpre = tuple(_card(p, cuda) for p in pre) if with_pre else None
+    before = tconv.launches
+    out = tconv.conv3x3_fused(tx, tw, tpre, dilation)
+    ref = tconv.conv3x3_plain(tx, tw, tpre, dilation, dtype)
+    torch.cuda.synchronize()
+    assert tconv.launches == before + 1
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N", [8, 19])
+def test_opm_kernel_matches_plain_on_card(cuda, dtype, N):
+    rng = np.random.default_rng(N)
+    L = 37
+    x = rng.normal(size=(2, N, L, 32)).astype(np.float32)
+    y = rng.normal(size=(2, N, L, 32)).astype(np.float32)
+    g, b = _affine(rng, 1024)
+    w = (rng.normal(size=(1024, 288)) / 32).astype(np.float32)
+    bias = (0.1 * rng.normal(size=288)).astype(np.float32)
+    args = (_card(x, cuda), _card(y, cuda, dtype), _card(g, cuda), _card(b, cuda),
+            _card(w, cuda, dtype), _card(bias, cuda), 1e-5, dtype)
+    before = topm.launches
+    out = topm.fused_outer_product_mean(*args)
+    ref = topm.outer_product_plain(*args)
+    torch.cuda.synchronize()
+    assert topm.launches == before + 1
+    _close(out, ref, 2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis1,lnres", [(True, True), (False, True), (True, False)])
+def test_performer_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres):
+    x, ln, w, statics = _performer_args((2, 70, 37), D=288, h=8, dh=64, m=320)
+    w = tuple(a / 2 for a in w[:4]) + w[4:]
+    tx = _card(x, cuda, dtype)
+    tln = (_card(ln[0], cuda), _card(ln[1], cuda), 1e-5) if lnres else None
+    tw = [_card(a, cuda, dtype) for a in w[:5]] + [_card(w[5], cuda)]
+    before = tfp.launches
+    if axis1:
+        fn = tfp.fused_ln_performer_residual_axis1 if lnres else tfp.fused_performer_layer_axis1
+    else:
+        fn = tfp.fused_ln_performer_residual if lnres else tfp.fused_performer_layer
+    xin = tx if axis1 else tx.reshape(-1, *tx.shape[2:])
+    out = fn(xin, *tln[:2], *tw, *statics, tln[2]) if lnres else fn(xin, *tw, *statics)
+    ref = tfp.performer_plain(xin, tln, *tw, *statics, 1 if axis1 else 2)
+    torch.cuda.synchronize()
+    assert tfp.launches == before + 1
+    _close(out, ref, 3e-5)

@@ -1,8 +1,10 @@
 """The port's whole slice against JAX: `tiny_config(scan_blocks=True,
 attn_impl="pallas")` through one JAX parameter tree shared by the module's
 tests (JAX runs its Pallas kernels in interpret mode, the port its kernels'
-plain versions on the CPU), in float32 and in the bf16 trunk; the bridge's
-scan unstacking; the L >= 128 contract; and the port's predict CLI."""
+plain versions on the CPU), in float32 and in the bf16 trunk, at L = 16
+(kernels A, B) and at L = 128 (all six kernels); the bridge's scan
+unstacking; the fast preset's range; and the port's predict CLI. Each side
+gets its own config class, the port's built from the JAX one's fields."""
 
 import dataclasses
 import json
@@ -19,10 +21,13 @@ from rosettafold_tpu.utils.scan_convert import adapt_params
 from rosettafold_tpu_torch import bridge
 from rosettafold_tpu_torch import predict as tpredict
 from rosettafold_tpu_torch.models.rosettafold import RoseTTAFold
-from tests.port_utils import random_params
+from tests.port_utils import port_config, random_params
 
 B, N, L = 1, 4, 16
 CFG = tiny_config(scan_blocks=True, attn_impl="pallas", p_dropout=0.0)
+# L = 128: every pair-track kernel engages. One encoder layer (tiny_config's
+# own depth) keeps the JAX interpret-mode run on the CPU within a minute.
+L_KERNELS = 128
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -38,8 +43,9 @@ def jax_model():
 
 def _outputs(cfg, params, inputs):
     j = jax.jit(JaxRoseTTAFold(config=cfg).apply)(params, *inputs)
-    model = RoseTTAFold(cfg, init=False)
-    model.load_state_dict(bridge.state_dict_from_flax(params, cfg), strict=True)
+    tcfg = port_config(cfg)
+    model = RoseTTAFold(tcfg, init=False)
+    model.load_state_dict(bridge.state_dict_from_flax(params, tcfg), strict=True)
     with torch.no_grad():
         t = model(*[torch.from_numpy(a) for a in inputs])
     flat = lambda out: [np.asarray(x, np.float32) for x in  # noqa: E731
@@ -87,23 +93,36 @@ def test_bridge_loads_strictly(jax_model):
     broken = jax.tree.map(lambda a: a, params["params"])
     del broken["final_block"]["plddt_head"]
     with pytest.raises(KeyError, match="plddt_head"):
-        bridge.state_dict_from_flax(broken, CFG)
+        bridge.state_dict_from_flax(broken, port_config(CFG))
 
 
-@pytest.mark.parametrize("length", [127, 128])
-def test_kernel_mode_limited_below_128(length):
-    """attn_impl="pallas" serves L < 128 (kernel A and B only) and refuses
-    L >= 128, where JAX runs pair-track kernels this port lacks."""
-    model = RoseTTAFold(tiny_config(attn_impl="pallas", p_dropout=0.0))
-    msa = torch.zeros((1, 2, length), dtype=torch.long)
-    aa = torch.arange(length)[None]
-    with torch.no_grad():
-        if length >= 128:
-            with pytest.raises(NotImplementedError, match="fused_performer"):
-                model(msa, msa[:, 0], aa)
+def test_slice_with_pair_kernels_matches_jax():
+    """At L = 128 kernels C, D, E and F run on both sides (JAX in interpret
+    mode, the port through the plain versions), float32, within 1e-4; the
+    JAX tree of this length loads strictly, with no new mapping."""
+    rng = np.random.default_rng(1)
+    msa = rng.integers(0, 21, (1, 2, L_KERNELS)).astype(np.int32)
+    inputs = (msa, msa[:, 0], np.arange(L_KERNELS, dtype=np.int32)[None])
+    params = random_params(JaxRoseTTAFold(config=CFG), *inputs, seed=1)
+    j, t = _outputs(CFG, params, inputs)
+    for a, b in zip(t, j):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("length", [384, 385])
+def test_fast_preset_range(length):
+    """The fast preset's kernel mode is built up to L = 384; above it the
+    preset picks the bucketed SE(3) layout, which is not ported and raises.
+    (Built on the meta device: structure only, no flagship-size memory.)"""
+    cfg = tpredict.fast_config(length)
+    with torch.device("meta"):
+        if length > 384:
+            with pytest.raises(NotImplementedError, match="bucket"):
+                RoseTTAFold(cfg, init=False)
         else:
-            _, xyz, plddt = model(msa, msa[:, 0], aa)
-            assert xyz.shape == (1, length, 3, 3) and bool(torch.isfinite(xyz).all())
+            model = RoseTTAFold(cfg, init=False)
+            assert model.config.attn_impl == "pallas" and model.config.se3_impl == "dense"
 
 
 def test_predict_cli_writes_pdb_npz_json(tmp_path, capsys):

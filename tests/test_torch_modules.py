@@ -275,3 +275,52 @@ def test_se3_transformer_rotation_equivariance(impl):
         out_r = model(h0, h1 @ R.T, edge, rel @ R.T, mask)
     np.testing.assert_allclose(out_r[0].numpy(), out[0].numpy(), atol=2e-3)
     np.testing.assert_allclose(out_r[1].numpy(), (out[1] @ R.T).numpy(), atol=2e-3)
+
+
+# ---- kernel mode (kernels C, D, E, F) at L = 16 through the crossover fields;
+# JAX runs its Pallas kernels in interpret mode, the port their plain versions
+LK = 16
+
+
+def test_axial_layer_kernel_mode():
+    """Row and column steps through kernel C with LN and residual folded in,
+    the FF step through kernel D."""
+    kw = dict(d_pair=D_PAIR, d_ff=2 * D_PAIR, n_heads=2, performer_dim_head=8,
+              attn_impl="pallas", fused_favor_min_l=1, ff_fused_min_l=1, p_dropout=0.0)
+    tmod = tpair.PairUpdateWithAxialAttentionLayer(**kw)
+    assert tmod.row_attn.fused_favor_min_l == 1 and tmod.ff_fused_min_l == 1
+    check(jpair.PairUpdateWithAxialAttentionLayer(**kw), tmod,
+          _normal((B, LK, LK, D_PAIR)))
+
+
+def test_outer_product_mean_kernel_mode():
+    check(jpair.OuterProductMean(8, D_PAIR, impl="pallas", fused_min_l=1),
+          tpair.OuterProductMean(8, D_PAIR, impl="pallas", fused_min_l=1),
+          _normal((B, N, LK, 8)), _normal((B, N, LK, 8), 1))
+
+
+def test_pair_update_with_msa_kernel_mode():
+    kw = dict(d_msa=D_MSA, d_proj=8, d_pair=D_PAIR, n_heads=4, attn_impl="pallas",
+              conv_fused_min_l=1)
+    check(jpair.PairUpdateWithMsa(**kw), tpair.PairUpdateWithMsa(**kw),
+          _normal((B, N, LK, D_MSA)), _normal((B, LK, LK, D_PAIR), 1),
+          np.abs(_normal((B, LK, LK, 4), 2)))
+
+
+@pytest.mark.parametrize("dilation", [1, 4])
+def test_res_block_2d_kernel_mode(dilation):
+    kw = dict(dilation=dilation, conv_impl="pallas", fused_min_l=1)
+    check(jresnet.ResBlock2D(8, **kw), tresnet.ResBlock2D(8, **kw), _normal((B, LK, LK, 8)))
+
+
+def test_prediction_head_kernel_mode():
+    """Every tower block through kernel F (the port's blocks set to engage at
+    L = 16) against the JAX head, whose towers cannot lower their crossover
+    and so run the XLA convs: the same math in float32."""
+    tmod = theads.PredictionHead(8, n_res_blocks=2, conv_impl="pallas")
+    blocks = [m for m in tmod.modules() if isinstance(m, tresnet.ResBlock2D)]
+    assert len(blocks) == 8
+    for blk in blocks:
+        blk.fused_min_l = 1
+    check(jheads.PredictionHead(in_channels=8, n_res_blocks=2, conv_impl="pallas"), tmod,
+          _normal((B, LK, LK, 8), 1))

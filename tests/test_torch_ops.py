@@ -1,8 +1,10 @@
 """The PyTorch port's ops against the JAX package: host constants bit-equal,
-device math at float32 tolerance, the serving-config pin, and the port's
-freedom from jax."""
+device math at float32 tolerance, the serving-config pin, the port's own
+copies of the JAX package's config and data modules, and the port's freedom
+from jax and from the JAX package."""
 
 import dataclasses
+import os
 import subprocess
 import sys
 import textwrap
@@ -12,40 +14,114 @@ import numpy as np
 import pytest
 import torch
 
+from rosettafold_tpu import config as jconfig
 from rosettafold_tpu import predict as jpredict
+from rosettafold_tpu.data import a3m as ja3m
+from rosettafold_tpu.data import pdb as jpdb
 from rosettafold_tpu.ops import knn as jknn
 from rosettafold_tpu.ops import performer as jfavor
 from rosettafold_tpu.ops import so3 as jso3
 from rosettafold_tpu.ops.sinusoidal import sinusoidal_table as j_sinusoidal_table
+from rosettafold_tpu_torch import config as tconfig
 from rosettafold_tpu_torch import predict as tpredict
+from rosettafold_tpu_torch.data import a3m as ta3m
+from rosettafold_tpu_torch.data import pdb as tpdb
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import performer as tfavor
 from rosettafold_tpu_torch.ops import so3 as tso3
 from rosettafold_tpu_torch.ops.sinusoidal import sinusoidal_table as t_sinusoidal_table
 
 ATOL = 1e-5
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+A3M = os.path.join(REPO, "examples", "demo_casp.a3m")
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports with jax absent from sys.modules."""
+    """Every module of the port, and then chip_smoke.py (imported, not run),
+    import with neither jax nor any module of the JAX package in sys.modules."""
     code = textwrap.dedent("""
-        import importlib, pkgutil, sys
+        import importlib, importlib.util, pkgutil, sys
         import rosettafold_tpu_torch as pkg
+
+        def bad():
+            return sorted(k for k in sys.modules if k == "jax"
+                          or k.startswith(("jax.", "flax"))
+                          or k.split(".")[0] == "rosettafold_tpu")
+
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(m.name)
-        bad = sorted(k for k in sys.modules if k == "jax" or k.startswith(("jax.", "flax")))
-        assert not bad, bad
+        assert not bad(), bad()
+        spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        assert not bad(), bad()
         print("ok")
     """)
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=120)
-    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+    res = subprocess.run([sys.executable, "-c", code, os.path.join(REPO, "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=120, cwd=REPO)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stdout + res.stderr
+
+
+def test_port_sources_import_no_jax_package():
+    """No import statement of the port or of chip_smoke.py, at any depth
+    (function-local imports included), names jax, flax or rosettafold_tpu."""
+    import ast
+    import glob
+
+    files = glob.glob(os.path.join(REPO, "rosettafold_tpu_torch", "**", "*.py"), recursive=True)
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(open(path).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [f"{path}: {n}" for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "rosettafold_tpu")]
+    assert len(files) > 20 and not bad, bad
 
 
 @pytest.mark.parametrize("L", [16, 96, 127, 128, 400, 1500])
 def test_fast_config_pinned_to_jax(L):
-    assert dataclasses.asdict(tpredict.fast_config(L)) == dataclasses.asdict(
-        jpredict.fast_config(L))
+    """Two config classes, one per package, compared field by field."""
+    t, j = tpredict.fast_config(L), jpredict.fast_config(L)
+    assert type(t) is tconfig.RoseTTAFoldConfig and type(t) is not type(j)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+@pytest.mark.parametrize("cls", ["RoseTTAFoldConfig", "PerformerConfig"])
+def test_config_copy_matches_jax(cls):
+    """The port's config classes have the JAX package's fields and defaults."""
+    t, j = getattr(tconfig, cls), getattr(jconfig, cls)
+    assert [f.name for f in dataclasses.fields(t)] == [f.name for f in dataclasses.fields(j)]
+    assert dataclasses.asdict(t()) == dataclasses.asdict(j())
+    assert dataclasses.asdict(tconfig.tiny_config()) == dataclasses.asdict(jconfig.tiny_config())
+    assert dataclasses.asdict(tconfig.tiny_config(d_msa=8, attn_impl="pallas")) == \
+        dataclasses.asdict(jconfig.tiny_config(d_msa=8, attn_impl="pallas"))
+
+
+@pytest.mark.parametrize("subsample", ["first", "diversity"])
+def test_a3m_features_bit_equal(subsample):
+    tokens = ta3m.load_a3m(A3M)
+    np.testing.assert_array_equal(tokens, ja3m.load_a3m(A3M))
+    for n_seq, crop in ((8, 50), (64, None)):
+        a = ta3m.msa_features(tokens, n_seq=n_seq, crop_len=crop, subsample=subsample)
+        b = ja3m.msa_features(tokens, n_seq=n_seq, crop_len=crop, subsample=subsample)
+        for x, y in zip(a, b):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+
+
+def test_write_pdb_same_bytes(tmp_path):
+    rng = np.random.default_rng(3)
+    xyz = rng.normal(size=(17, 3, 3)).astype(np.float32) * 10
+    seq = rng.integers(0, 21, 17)
+    plddt = rng.uniform(size=17)
+    tpdb.write_pdb(str(tmp_path / "t.pdb"), xyz, seq, plddt)
+    jpdb.write_pdb(str(tmp_path / "j.pdb"), xyz, seq, plddt)
+    assert (tmp_path / "t.pdb").read_bytes() == (tmp_path / "j.pdb").read_bytes()
 
 
 @pytest.mark.parametrize("seed", [42, 43, 142, 1042, 1143, 9042])
