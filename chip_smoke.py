@@ -1,22 +1,30 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on a CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths once on a CUDA card and
+check them.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints torch/CUDA versions and
      `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
-  2. build: compiles the six CUDA kernels from csrc/ (one nvcc per source,
-     all at once, sm_90a);
+  2. build: compiles the kernels' CUDA sources from csrc/ (one nvcc per
+     source, all at once, sm_90a);
   3. kernel vs plain at the main path's shapes, TF32 off, float32 and
-     bfloat16: tied attention (A) at L in {120, 128, 250}, N in {8, 64};
+     bfloat16: tied attention (A) at L in {120, 128, 250} and every MSA depth
+     N the serving and training phases run (PATH_NS);
      SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask;
      the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
      + residual (C) over both axes, with and without LN/residual; fused LN +
-     FF + residual (D); outer-product mean (E) at N in {8, 64}; 3x3 conv (F)
+     FF + residual (D); outer-product mean (E) at each N of PATH_NS; 3x3 conv (F)
      at dilations 1/2/4/8 with and without the pre-op. Each shape logs
      max|d| against its bound, the kernel's and the plain version's CUDA-event
      ms, and the least time the card could take (`bound`);
+  3b. the backward kernels against their plain backward versions, float32
+     and bfloat16: tied attention's (G) at L in {128, 250}, N in {8, 16},
+     B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over both axes, with and without LN,
+     at L=128 (B=4) and L=250 (B=1); F's float32-output input gradient at
+     dilations 1/2/4/8; the same logs, and the library yardsticks (SDPA's
+     backward, cuDNN's conv input gradient);
   4. serving: requests through `predict()` with the fast preset, made from
      examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120 / 8,
      crop 128 / 64, the whole chain L=250 / 32), each timed over repeated warm
@@ -28,6 +36,15 @@ Phases (any failure exits non-zero and prints no result line):
      envelope (logits max|d| <= 1e-2, xyz <= 0.4);
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
      busy share and the top device-time operators;
+  7. training: train.loop.fit with bench_train.py's configuration (bf16,
+     kernels, dense SE(3), remat, dropout 0.1, bf16 first moments) on a
+     synthetic (A3M, PDB) pair, at B=1 / n_seq 8 / crop 128 and B=4 / n_seq
+     16 / crop 128: ms/step, peak memory, finite loss and gradient norm, and
+     each kernel launched as often per step as the code implies (KERNELS);
+     the profile of a warm B=4 step; a falling loss on one fixed batch; and
+     the float32 gradient envelope of the kernel path against the plain path
+     at both shapes (loss within 1e-3 relative, gradient cosine >= 0.999,
+     norms within 1e-2);
 then prints one JSON line of kernel results and, last, the contract line
 {"ok": true, "device": {...}}.
 """
@@ -35,8 +52,10 @@ then prints one JSON line of kernel results and, last, the contract line
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
+import tempfile
 import subprocess
 import sys
 import time
@@ -46,21 +65,43 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 A3M = os.path.join(ROOT, "examples", "demo_casp.a3m")
 REQUESTS = ((64, 64), (96, 32), (120, 8), (128, 64), (250, 32))  # (crop, n_seq)
 BATCHES = ((4, 8, 120), (4, 8, 128))                            # (B, N, L)
+TRAIN_SHAPES = ((1, 8, 128), (4, 16, 128))  # (B, n_seq, crop): bench_train's, train_cli's
+# every MSA depth the main path gives kernels A and E
+PATH_NS = tuple(sorted({n for _, n in REQUESTS} | {n for _, n, _ in BATCHES + TRAIN_SHAPES}))
 REPS = 10  # warm forwards timed per request and batch
-KERNELS = {  # name: (source, TPU kernel it replaces, launches per forward at L >= 128)
-    "tied_attention": ("tied_attention.cu", "tied_attention.py:99", 21),
-    "se3_attend": ("se3_attend.cu", "se3_attend.py:486", 12),
-    "fused_performer": ("fused_performer.cu", "fused_performer.py:398", 56),
-    "fused_ff": ("fused_ff.cu", "fused_ff.py:58", 28),
-    "outer_product": ("outer_product.cu", "outer_product.py:88", 7),
-    "conv3x3": ("conv3x3.cu", "conv3x3.py:134", 46),
+# name: (module of ops/cuda, its launch counter, CUDA source, TPU kernel it
+# replaces, launches per serving forward at L >= 128, launches per train step
+# at L = 128 with dropout and remat on: each forward kernel runs in the
+# forward and again in the recomputation of its remat'd block)
+KERNELS = {
+    "tied_attention": ("tied_attention", "launches", "tied_attention.cu", "tied_attention.py:99",
+                       21, 42),
+    "se3_attend": ("se3_attend", "launches", "se3_attend.cu", "se3_attend.py:486", 12, 24),
+    "fused_performer": ("fused_performer", "launches", "fused_performer.cu",
+                        "fused_performer.py:398", 56, 112),
+    "fused_ff": ("fused_ff", "launches", "fused_ff.cu", "fused_ff.py:58", 28, 0),
+    "outer_product": ("outer_product", "launches", "outer_product.cu", "outer_product.py:88",
+                      7, 14),
+    "conv3x3": ("conv3x3", "launches", "conv3x3.cu", "conv3x3.py:134", 46, 92),
+    "tied_attention_bwd": ("tied_attention", "bwd_launches", "tied_attention_bwd.cu",
+                           "tied_attention.py:241", 0, 21),
+    "fused_performer_bwd": ("fused_performer", "bwd_launches", "fused_performer_bwd.cu",
+                            "fused_performer.py:601", 0, 56),
+    "conv3x3_bwd": ("conv3x3", "bwd_launches", "conv3x3.cu", "conv3x3.py:222", 0, 46),
 }
+SOURCES = sorted({src[:-3] for _, _, src, _, _, _ in KERNELS.values()})
 PAIR_KERNELS = ("fused_performer", "fused_ff", "outer_product", "conv3x3")
-# float32 tolerances: those of the JAX kernel tests (A 2e-5, B 2e-5, C 3e-5,
-# D, E, F 2e-5). bfloat16: two bf16 ulps of the plain value (2^-6 relative)
-# + 1e-2: both sides round the same intermediates, in other summation orders.
-F32_TOL = {"tied_attention": 2e-5, "se3_attend": 2e-5, "fused_performer": 3e-5,
-           "fused_ff": 2e-5, "outer_product": 2e-5, "conv3x3": 2e-5}
+# float32 tolerances (atol, rtol): those of the JAX kernel tests (A 2e-5, B
+# 2e-5, C 3e-5, D, E, F 2e-5) and of its gradient tests (G 3e-5,
+# tests/test_pallas.py:41,166; C' 2e-4 / 1e-3, :268,320; F's backward 2e-5,
+# tests/test_conv3x3.py:99). bfloat16: two bf16 ulps of the plain value
+# (2^-6 relative) + 1e-2: both sides round the same intermediates, in other
+# summation orders.
+F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
+           "fused_performer": (3e-5, 3e-5), "fused_ff": (2e-5, 2e-5),
+           "outer_product": (2e-5, 2e-5), "conv3x3": (2e-5, 2e-5),
+           "tied_attention_bwd": (3e-5, 0.0), "fused_performer_bwd": (2e-4, 1e-3),
+           "conv3x3_bwd": (2e-5, 2e-5)}
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
@@ -131,7 +172,7 @@ class Results:
         self.kernels = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def case(self, name, tag, kernel, plain, args, dtype_name, main=False, library=None,
-             work_share=1.0):
+             work_share=1.0, iters=10, grad=False):
         import torch
 
         out = kernel(*args)
@@ -140,20 +181,33 @@ class Results:
         pairs = list(zip(_tensors(out), _tensors(ref)))
         err = max(float((a.float() - b.float()).abs().max()) for a, b in pairs)
         if dtype_name == "float32":
-            tol = F32_TOL[name]
-            ok = all(torch.allclose(a, b, atol=tol, rtol=tol) for a, b in pairs)
-            what = f"atol=rtol={tol}"
+            atol, rtol = F32_TOL[name]
+            ok = all(torch.allclose(a, b, atol=atol, rtol=rtol) for a, b in pairs)
+            what = f"atol {atol} rtol {rtol}"
         else:
+            # a gradient has no unit scale: its absolute term is 1e-2 of the
+            # output's largest magnitude where that exceeds 1 (each term of a
+            # backward sum rounds in bf16, e.g. ds before dq, so a rounding
+            # flip moves the sum in proportion to the terms, not the result)
+            def atol(b):
+                return BF16_ATOL * (max(1.0, float(b.abs().max())) if grad else 1.0)
             ok = all(bool(((a.float() - b.float()).abs()
-                           <= BF16_ATOL + BF16_RTOL * b.float().abs()).all()) for a, b in pairs)
-            what = f"atol {BF16_ATOL} rtol 2^-6"
-        ms = cuda_time(lambda: kernel(*args))
-        plain_ms = cuda_time(lambda: plain(*args))
+                           <= atol(b.float()) + BF16_RTOL * b.float().abs()).all())
+                     for a, b in pairs)
+            what = f"atol {BF16_ATOL}{' x max(1, max|ref|)' if grad else ''} rtol 2^-6"
+        ms = cuda_time(lambda: kernel(*args), iters)
+        plain_ms = cuda_time(lambda: plain(*args), iters)
         bound_ms, bound_by = bound(plain, args, out, dtype_name, work_share)
-        lib_ms = None if library is None else cuda_time(library)
+        lib_ms = None if library is None else cuda_time(library, iters)
         lib = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
         log(f"{name} {tag} {dtype_name}: max|d| {err:.3e} ({what}) kernel {ms:.4f} ms"
             f" plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}){lib}")
+        if not ok:
+            for i, (a, b) in enumerate(pairs):
+                d = (a.float() - b.float()).abs()
+                at = int(d.argmax())
+                log(f"  output {i}: max|d| {float(d.max()):.3e} at ref {float(b.flatten()[at]):.4e},"
+                    f" max|ref| {float(b.abs().max()):.3e}")
         require(ok, f"{name} disagrees with its plain version at {tag} {dtype_name}")
         rec = self.kernels[name]
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -179,9 +233,9 @@ def phase_build():
     from rosettafold_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    build.build_all(list(KERNELS))
-    log(f"build: {len(build.build_log)} kernels in {time.perf_counter() - t0:.2f} s")
-    for name in KERNELS:
+    build.build_all(SOURCES)
+    log(f"build: {len(build.build_log)} sources in {time.perf_counter() - t0:.2f} s")
+    for name in SOURCES:
         build.load(name)
         secs, out = build.build_log.get(name, (0.0, ""))
         log(f"build {name}: {secs:.2f} s")
@@ -205,7 +259,7 @@ def phase_tied(res):
     g = torch.Generator(device="cuda").manual_seed(0)
     for L in (120, 128, 250):
         BH = (4 if L <= 128 else 1) * 12
-        for N in (8, 64):
+        for N in PATH_NS:
             ND = N * 32
             q, k = (torch.randn(BH, L, ND, device="cuda", generator=g) * 0.3 for _ in range(2))
             v = torch.randn(BH, L, ND, device="cuda", generator=g)
@@ -217,7 +271,8 @@ def phase_tied(res):
                     qs, ks, vs = (t[:, None] for t in args)
                     lib = lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0)  # noqa
                 res.case("tied_attention", f"B*H={BH} L={L} N={N}", ta.tied_attention_forward,
-                         ta.tied_attention_plain, args, dname, main=main, library=lib)
+                         ta.tied_attention_plain, args, dname, main=main, library=lib,
+                         iters=10 if main else 3)
 
 
 def phase_se3(res):
@@ -317,13 +372,14 @@ def phase_pair_kernels(res):
             res.case("fused_ff", shape, ff.fused_ln_ff_residual, ff.fused_ff_plain, args, dname,
                      main=main)
             # E
-            for N in (8, 64):
+            for N in PATH_NS:
                 xo = _normal((B, N, L, 32), 1.0, g)
                 yo = (xo * torch.rand(B, N, L, 1, generator=g, device="cuda")).to(dt)
                 args = (xo, yo, 1.0 + _normal((1024,), 0.1, g), _normal((1024,), 0.1, g),
                         _normal((1024, D), 1 / 32, g, dt), _normal((D,), 0.1, g), 1e-5, dt)
                 res.case("outer_product", f"{shape} N={N}", op.fused_outer_product_mean,
-                         op.outer_product_plain, args, dname, main=main and N == 8)
+                         op.outer_product_plain, args, dname, main=main and N == 8,
+                         iters=10 if main and N == 8 else 3)
             # F
             wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
             pre = (1.0 + _normal((B, D), 0.1, g), _normal((B, D), 0.1, g))
@@ -343,6 +399,93 @@ def phase_pair_kernels(res):
             del x
 
 
+def phase_backward_kernels(res):
+    """3b: G, C' and F's float32 input gradient against their plain
+    backward versions, float32 and bfloat16, at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import conv3x3 as cv
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+    from rosettafold_tpu_torch.ops.cuda import tied_attention as ta
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for L in (128, 250):
+        for N in (8, 16):
+            BH, ND = 48, N * 32
+            q, k = (_normal((BH, L, ND), 0.3, g) for _ in range(2))
+            v, gout = (_normal((BH, L, ND), 1.0, g) for _ in range(2))
+            for dname in ("float32", "bfloat16"):
+                dt = _dt(dname)
+                qd, kd, vd, gd = (t.to(dt) for t in (q, k, v, gout))
+                out, lse = ta.tied_attention_forward(qd, kd, vd)  # kernel A, as on the path
+                args = (qd, kd, vd, out, lse, gd)
+                main = (L, N, dname) == (128, 16, "bfloat16")  # train_cli's B=4, n_seq 16
+                lib = None
+                if main:  # SDPA's backward on the same q, k, v, where it takes the shape
+                    leaves = [t[:, None].detach().requires_grad_() for t in (qd, kd, vd)]
+                    o = F.scaled_dot_product_attention(*leaves, scale=1.0)
+                    lib = lambda: o.backward(gd[:, None], retain_graph=True)  # noqa: E731
+                    try:
+                        lib()
+                    except RuntimeError as e:  # the yardstick only; the port never calls it
+                        log(f"  SDPA backward does not take ND={ND}: {str(e)[:120]}")
+                        lib = None
+                res.case("tied_attention_bwd", f"B*H={BH} L={L} N={N}", ta.tied_attention_backward,
+                         ta.tied_attention_bwd_plain, args, dname, main=main, library=lib,
+                         iters=10 if main else 3, grad=True)
+    D, HD = 288, 512
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
+    statics = (64 ** -0.25, 1e-3, 8, 64)
+    for B, L in ((4, 128), (1, 250)):
+        x32 = _normal((B, L, L, D), 1.0, g)
+        gy32 = _normal((B, L, L, D), 0.05, g)
+        ln = (1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g), 1e-5)
+        for dname in ("float32", "bfloat16"):
+            dt = _dt(dname)
+            x, gy = x32.to(dt), gy32.to(dt)
+            w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
+            w.append(_normal((HD, D), HD ** -0.5, g, dt))
+            for axis in (1, 2):
+                for with_ln in (False, True):
+                    xin, gin = (x, gy) if axis == 1 else (x.reshape(B * L, L, D),
+                                                           gy.reshape(B * L, L, D))
+                    lnp = ln if with_ln else None
+
+                    def kernel(x_, g_, *w_, lnp=lnp, axis=axis):
+                        return fp.performer_backward(x_, lnp, *w_, proj, *statics, axis, g_)
+
+                    def plain(x_, g_, *w_, lnp=lnp, axis=axis):
+                        return fp.performer_backward(x_, lnp, *w_, proj, *statics, axis, g_,
+                                                     core=fp.attn_backward_plain)
+                    main = (B, L, dname, axis, with_ln) == (4, 128, "bfloat16", 1, False)
+                    res.case("fused_performer_bwd",
+                             f"B={B} L={L} axis {axis} {'LN+residual' if with_ln else 'no LN'}",
+                             kernel, plain, (xin, gin, *w), dname, main=main,
+                             iters=5 if main else 2, grad=True)
+        for dname in ("float32", "bfloat16"):
+            dt = _dt(dname)
+            gc = _normal((B, L, L, D), 1.0, g, dt)
+            wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
+            for dil in (1, 2, 4, 8):
+                main = (B, L, dname, dil) == (4, 128, "bfloat16", 1)
+
+                def plain(g_, w_, d_):
+                    return cv.conv3x3_plain(g_.to(w_.dtype), torch.flip(w_, (0, 1)).transpose(2, 3),
+                                            None, d_, torch.float32)
+                lib = None
+                if main:  # cuDNN's input gradient, channels_last
+                    wn = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                    gn = gc.permute(0, 3, 1, 2)
+                    lib = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
+                        (B, D, L, L), wn, gn, padding=1)
+                res.case("conv3x3_bwd", f"B={B} L={L} dilation {dil} (dx, float32 out)",
+                         cv.conv3x3_input_grad, plain, (gc, wc, dil), dname, main=main,
+                         library=lib, iters=10 if main else 3, grad=True)
+        del x32, gy32
+
+
 def _check_outputs(logits, xyz, plddt, B, L):
     import torch
 
@@ -356,10 +499,19 @@ def _check_outputs(logits, xyz, plddt, B, L):
     require(plddt.shape == (B, L) and bool(torch.isfinite(plddt).all()), "plddt")
 
 
-def _counters():
+def _module(name):
     import importlib
 
-    return {n: importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{n}") for n in KERNELS}
+    return importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{KERNELS[name][0]}")
+
+
+def read_counts():
+    return {n: getattr(_module(n), KERNELS[n][1]) for n in KERNELS}
+
+
+def zero_counts():
+    for n in KERNELS:
+        setattr(_module(n), KERNELS[n][1], 0)
 
 
 def _timed_forwards(model, args, n):
@@ -396,21 +548,19 @@ def phase_serving():
     from rosettafold_tpu_torch import predict as P
 
     model = P.build_model(P.fast_config(max(c for c, _ in REQUESTS)), device="cuda", seed=0)
-    mods = _counters()
     expected = dict.fromkeys(KERNELS, 0)
 
     def add(L, n):
-        for name, (_, _, per_fwd) in KERNELS.items():
+        for name, (_, _, _, _, per_fwd, _) in KERNELS.items():
             if L >= 128 or name not in PAIR_KERNELS:
                 expected[name] += per_fwd * n
 
     def check(what):
-        counts = {n: m.launches for n, m in mods.items()}
+        counts = read_counts()
         require(counts == expected, f"launches {counts} != {expected} after {what}")
 
     readings = {}
-    for m in mods.values():
-        m.launches = 0  # count only the main path from here
+    zero_counts()  # count only the main path from here
     for crop, n_seq in REQUESTS:
         logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
             A3M, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
@@ -436,8 +586,8 @@ def phase_serving():
         log(f"batched forward B={B} N={N} L={L}: {REPS} warm, median {med:.2f} ms"
             f" ({B * L * L / med * 1e3:.0f} pairs/s), min {min(times[1:]):.2f},"
             f" max {max(times[1:]):.2f}")
-    counts = {n: m.launches for n, m in mods.items()}
-    log("main path launches: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+    counts = read_counts()
+    log("serving path launches: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
     return counts, model
 
 
@@ -465,25 +615,27 @@ def phase_e2e():
                 f"kernel path leaves the full-depth envelope at crop {crop}")
 
 
-def phase_profile(model):
-    import torch
+def profile_report(tag, fn):
+    """torch.profiler over one call of fn: device busy share and the top
+    device-time operators and kernels."""
     from torch.profiler import ProfilerActivity, profile
 
-    args = _batch_inputs(4, 8, 128)
-    _timed_forwards(model, args, 1)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _timed_forwards(model, args, 1)
+        fn()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
 
     def dev(e):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
-    on_device = [e for e in events if "CUDA" in str(e.device_type)]  # the kernels
+    # the kernels; a record_function range (e.g. Optimizer.step) also shows a
+    # device-side span, which would count its kernels twice
+    on_device = [e for e in events if "CUDA" in str(e.device_type)
+                 and not getattr(e, "is_user_annotation", False)]
     ops = [e for e in events if "CUDA" not in str(e.device_type)]    # host operators
     total = sum(dev(e) for e in on_device) / 1e3
-    log(f"profile B=4 N=8 L=128: wall {wall:.2f} ms, device time {total:.2f} ms,"
+    log(f"profile {tag}: wall {wall:.2f} ms, device time {total:.2f} ms,"
         f" busy {total / wall:.3f}, {sum(e.count for e in on_device)} device kernel calls")
     log("  top operators by self device time:")
     for e in sorted(ops, key=dev, reverse=True)[:12]:
@@ -491,6 +643,182 @@ def phase_profile(model):
     log("  top device kernels:")
     for e in sorted(on_device, key=dev, reverse=True)[:10]:
         log(f"  {dev(e) / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
+
+
+def phase_profile(model):
+    args = _batch_inputs(4, 8, 128)
+    _timed_forwards(model, args, 1)
+    profile_report("B=4 N=8 L=128 forward", lambda: _timed_forwards(model, args, 1))
+
+
+def _backbone(L, rng):
+    """(L, 3, 3) N/CA/C: a CA random walk of 3.8 A steps with inertia, N and C
+    at backbone bond lengths (examples/make_demo_pairs.py's recipe)."""
+    import numpy as np
+
+    d = rng.normal(size=3)
+    d /= np.linalg.norm(d)
+    ca = [np.zeros(3)]
+    for _ in range(L - 1):
+        d = d + 0.55 * rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        ca.append(ca[-1] + 3.8 * d)
+    ca = np.stack(ca)
+    xyz = np.zeros((L, 3, 3))
+    xyz[:, 1] = ca
+    for i in range(L):
+        prev_d = ca[i] - ca[i - 1] if i > 0 else ca[i] - ca[i + 1]
+        next_d = ca[i + 1] - ca[i] if i < L - 1 else ca[i] - ca[i - 1]
+        prev_d = prev_d / (np.linalg.norm(prev_d) + 1e-9)
+        next_d = next_d / (np.linalg.norm(next_d) + 1e-9)
+        perp = np.cross(prev_d, next_d)
+        if np.linalg.norm(perp) < 1e-6:
+            perp = np.cross(prev_d, np.array([0.0, 0.0, 1.0]))
+        perp = perp / (np.linalg.norm(perp) + 1e-9)
+        xyz[i, 0] = ca[i] - 1.46 * (0.8 * prev_d + 0.6 * perp)
+        xyz[i, 2] = ca[i] + 1.52 * (0.8 * next_d + 0.6 * perp)
+    return xyz
+
+
+def _train_pairs(tmp, n=4):
+    """n (A3M, PDB) pairs in `tmp`: examples/demo_casp.a3m, each with a
+    backbone of its L=250 query from a random walk of seed i. `batches`
+    yields a batch only from examples of one epoch, so B=4 needs four."""
+    import shutil
+
+    import numpy as np
+
+    from rosettafold_tpu_torch.data.a3m import load_a3m
+    from rosettafold_tpu_torch.data.pdb import write_pdb
+
+    query = load_a3m(A3M)[0]
+    pairs = []
+    for i in range(n):
+        stem = os.path.join(tmp, f"demo{i}")
+        shutil.copy(A3M, stem + ".a3m")
+        write_pdb(stem + ".pdb", _backbone(len(query), np.random.default_rng(i)), query)
+        pairs.append((stem + ".a3m", stem + ".pdb"))
+    return pairs
+
+
+def train_config(**overrides):
+    """bench_train.py's kernel configuration at flagship width (L <= 384)."""
+    import dataclasses
+
+    from rosettafold_tpu_torch.config import RoseTTAFoldConfig
+
+    cfg = RoseTTAFoldConfig(max_len=260, compute_dtype="bfloat16", attn_impl="pallas",
+                            se3_impl="dense", remat=True)
+    return dataclasses.replace(cfg, **overrides)
+
+
+TRAIN_WARM, TRAIN_TIMED = 2, 5
+
+
+def phase_training(pairs):
+    """7: fit() steps at both shapes (launch counts, ms/step, peak memory,
+    finite loss and grad norm), the falling loss, the float32 gradient
+    envelope of the kernel path against the plain path, the step's profile."""
+    import torch
+
+    from rosettafold_tpu_torch.data.dataset import batches
+    from rosettafold_tpu_torch.train import step as S
+    from rosettafold_tpu_torch.train.loop import fit
+
+    counts = dict.fromkeys(KERNELS, 0)
+    state = None
+    for B, N, crop in TRAIN_SHAPES:
+        times, records = [], []
+
+        def log_step(msg, times=times):
+            times.append(time.perf_counter())
+            records.append(msg)
+
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        data = batches(pairs, batch_size=B, n_seq=N, crop_len=crop, seed=B)
+        zero_counts()
+        t0 = time.perf_counter()
+        state = fit(train_config(), data, TRAIN_WARM + TRAIN_TIMED, seed=0, log_every=1,
+                    moment_dtype="bfloat16", log_fn=log_step, device="cuda")
+        got = read_counts()
+        steps = TRAIN_WARM + TRAIN_TIMED
+        want = {n: KERNELS[n][5] * steps for n in KERNELS}
+        require(got == want, f"train launches {got} != {want} at B={B} N={N} L={crop}")
+        for n in KERNELS:
+            counts[n] += got[n]
+        ms = [(b - a) * 1e3 for a, b in zip([t0] + times, times)][TRAIN_WARM:]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"train B={B} n_seq={N} crop={crop}: {TRAIN_TIMED} timed steps, median"
+            f" {statistics.median(ms):.2f} ms/step (min {min(ms):.2f}, max {max(ms):.2f}),"
+            f" peak memory {peak:.2f} GiB")
+        for r in records:
+            log(f"  {r}")
+            loss, grad = float(r.split("loss=")[1].split()[0]), float(r.split("grad=")[1].split()[0])
+            require(math.isfinite(loss) and math.isfinite(grad), f"non-finite step: {r}")
+    log("train path launches: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
+
+    # a warm B=4 step, profiled
+    step_fn = S.make_train_step(state.model.config)
+    batch = S.to_device(next(batches(pairs, batch_size=4, n_seq=16, crop_len=128, seed=9)),
+                        "cuda")
+
+    def one_step():
+        step_fn(state, batch, 0)
+        torch.cuda.synchronize()
+    profile_report("train step B=4 n_seq=16 L=128", one_step)
+    del state, batch
+
+    # the loss falls on one fixed batch (tests/test_train.py:99-110)
+    batch = S.to_device(next(batches(pairs, batch_size=1, n_seq=8, crop_len=128, seed=1)), "cuda")
+    state = S.create_train_state(train_config(), seed=0, learning_rate=3e-4,
+                                 moment_dtype="bfloat16")
+    losses = []
+    for _ in range(6):
+        state, m = step_fn(state, batch, 7)
+        losses.append(float(m["total"]))
+    log("fixed-batch losses, lr 3e-4: " + " ".join(f"{v:.4f}" for v in losses))
+    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    del state
+
+    # float32 gradient envelope: the same weights and batches through the kernels and the plain
+    # path, at both training shapes
+    envelope = {(B, N, crop): S.to_device(next(batches(pairs, batch_size=B, n_seq=N,
+                                                       crop_len=crop, seed=1)), "cuda")
+                for B, N, crop in TRAIN_SHAPES}
+    grads, loss = {}, {}
+    for impl in ("pallas", "xla"):
+        model = S.create_train_state(train_config(compute_dtype="float32", p_dropout=0.0,
+                                                  attn_impl=impl), seed=0).model
+        for shape, env_batch in envelope.items():
+            model.zero_grad(set_to_none=True)
+            total, _ = S._forward_loss(model, env_batch)
+            total.backward()
+            loss[impl, shape] = float(total.detach())
+            grads[impl, shape] = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                                  if p.grad is not None}
+        del model
+    for B, N, crop in envelope:
+        shape = (B, N, crop)
+        gk, gp = grads["pallas", shape], grads["xla", shape]
+        require(set(gk) == set(gp), "parameters with gradients differ")
+        g_k = torch.cat([t.flatten() for t in gk.values()])
+        g_p = torch.cat([gp[n].flatten() for n in gk])
+        cos = float(torch.nn.functional.cosine_similarity(g_k, g_p, dim=0))
+        rel_norm = float((g_k.norm() - g_p.norm()).abs() / g_p.norm())
+        lk, lp = loss["pallas", shape], loss["xla", shape]
+        rel_loss = abs(lk - lp) / abs(lp)
+        diff = {n: float((gk[n] - gp[n]).norm()) for n in gp}
+        worst = max(diff, key=diff.get)  # the largest difference, against the whole gradient
+        log(f"gradient envelope f32 (B={B} n_seq={N} L={crop}, dropout 0): loss {lk:.6f} vs"
+            f" {lp:.6f} (rel {rel_loss:.3e} <= 1e-3), gradient cosine {cos:.7f} (>= 0.999),"
+            f" rel norm diff {rel_norm:.3e} (<= 1e-2); worst tensor {worst}: |d|"
+            f" {diff[worst]:.3e} = {diff[worst] / float(g_p.norm()):.3e} of the gradient's norm,"
+            f" {diff[worst] / float(gp[worst].norm()):.3e} of its own")
+        require(rel_loss <= 1e-3 and cos >= 0.999 and rel_norm <= 1e-2,
+                f"kernel path leaves the float32 gradient envelope at B={B} n_seq={N}")
+    return counts
 
 
 def main() -> int:
@@ -516,12 +844,16 @@ def main() -> int:
         phase_tied(res)
         phase_se3(res)
         phase_pair_kernels(res)
-        log(f"phases 1-3: {time.perf_counter() - t0:.1f} s")
-        counts, model = phase_serving()
+        phase_backward_kernels(res)
+        log(f"phases 1-3b: {time.perf_counter() - t0:.1f} s")
+        serving, model = phase_serving()
         log(f"phases 1-4: {time.perf_counter() - t0:.1f} s")
         phase_profile(model)
         del model
         phase_e2e()
+        log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            training = phase_training(_train_pairs(tmp))
         log(f"all phases: {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -529,8 +861,14 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": f"rosettafold_tpu_torch/csrc/{src}",
                 "replaces": f"rosettafold_tpu/ops/pallas/{tpu}",
-                "launches": counts[name], **res.kernels[name]}
-               for name, (src, tpu, _) in KERNELS.items()]
+                "launches": serving[name] + training[name],
+                "launches_serving": serving[name], "launches_training": training[name],
+                **res.kernels[name]}
+               for name, (_, _, src, tpu, _, _) in KERNELS.items()]
+    missing = [k["name"] for k in kernels if k["launches"] == 0 or "ms" not in k]
+    if missing:
+        print(f"chip_smoke.py: kernels without launches or times: {missing}", file=sys.stderr)
+        return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -96,6 +96,63 @@ __device__ __forceinline__ void warp_gemm(float (&acc)[NT][4], const float* A, i
   warp_gemm_strided<NT>(acc, A, lda, B, ldb, 1, K);
 }
 
+// Any layout: A element (row, k) at A[row * a_r + k * a_k], B element (n, k)
+// at B[n * b_n + k * b_k]. bfloat16 packs each fragment pair from two scalar
+// loads (K % 16 == 0); float32 is warp_gemm_strided with a strided A.
+template <int NT>
+__device__ __forceinline__ void warp_gemm_any(float (&acc)[NT][4], const bf16* A, int a_r,
+                                              int a_k, const bf16* B, int b_n, int b_k, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  auto pack = [](const bf16* p, int step) {
+    const uint32_t lo = __bfloat16_as_ushort(p[0]), hi = __bfloat16_as_ushort(p[step]);
+    return lo | (hi << 16);
+  };
+  for (int k = 0; k < K; k += 16) {
+    uint32_t a[4];
+    a[0] = pack(A + g * a_r + (k + 2 * tg) * a_k, a_k);
+    a[1] = pack(A + (g + 8) * a_r + (k + 2 * tg) * a_k, a_k);
+    a[2] = pack(A + g * a_r + (k + 2 * tg + 8) * a_k, a_k);
+    a[3] = pack(A + (g + 8) * a_r + (k + 2 * tg + 8) * a_k, a_k);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const bf16* b = B + (n * 8 + g) * b_n + (k + 2 * tg) * b_k;
+      mma_bf16(acc[n], a, pack(b, b_k), pack(b + 8 * b_k, b_k));
+    }
+  }
+}
+
+template <int NT>
+__device__ __forceinline__ void warp_gemm_any(float (&acc)[NT][4], const float* A, int a_r,
+                                              int a_k, const float* B, int b_n, int b_k, int K) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, tg = lane & 3;
+  for (int k = 0; k < K; ++k) {
+    const float a0 = A[g * a_r + k * a_k], a1 = A[(g + 8) * a_r + k * a_k];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const float* b = B + (n * 8 + 2 * tg) * b_n + k * b_k;
+      const float b0 = b[0], b1 = b[b_n];
+      acc[n][0] = fmaf(a0, b0, acc[n][0]);
+      acc[n][1] = fmaf(a0, b1, acc[n][1]);
+      acc[n][2] = fmaf(a1, b0, acc[n][2]);
+      acc[n][3] = fmaf(a1, b1, acc[n][3]);
+    }
+  }
+}
+
+// Row (problem p, position l) of a pair tensor read in place: problem p at
+// (p / p_inner) * s_hi + (p % p_inner) * s_lo, position l at l * s_pos
+// (elements). The row step of the axial attention attends over axis 1 of
+// (B, L1, L2, D) and the column step over axis 2; both are such strides.
+struct Rows {
+  long long s_hi, s_lo, s_pos;
+  int p_inner, L;
+  __device__ __forceinline__ long long offset(long long row) const {
+    const long long p = row / L;
+    const int l = (int)(row % L);
+    return (p / p_inner) * s_hi + (p % p_inner) * s_lo + l * s_pos;
+  }
+};
+
 // f(row, col, value) for each accumulator element this thread holds
 template <int NT, typename F>
 __device__ __forceinline__ void for_each(float (&acc)[NT][4], F&& f) {

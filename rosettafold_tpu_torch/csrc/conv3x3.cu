@@ -8,7 +8,9 @@
 // pre-op (InstanceNorm affine + ELU between a ResBlock's two convs) is applied
 // in float32 and rounded to the compute dtype while the input is read, and
 // the out-of-image halo is zero AFTER it (SAME padding pads the activated
-// tensor); products accumulate in float32.
+// tensor); products accumulate in float32. The output is written in the input
+// dtype or, for the input gradient of the conv's backward (`_bwd_rule` :250:
+// this kernel with flipped, transposed weights), in float32.
 //
 // What bounds it on this card: operations (2 * 9 * C * Co per pixel, 98 GFLOP
 // at B=4, L=128, C = Co = 288), against one read of x per tap (from L2) and
@@ -39,10 +41,10 @@ constexpr size_t smem_bytes() {
   return sizeof(T) * (BP * LDK + CO * LDK);
 }
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(NTHREADS)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ pre,
-               T* __restrict__ out, int H, int W, int C, int dil) {
+               TO* __restrict__ out, int H, int W, int C, int dil) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* As = reinterpret_cast<T*>(smem_raw);  // [BP][LDK] shifted input pixels
   T* Bs = As + BP * LDK;                    // [CO][LDK] weight slice [co][ci]
@@ -84,23 +86,23 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __
       warp_gemm<NT>(acc, As + rg * 16 * LDK, LDK, Bs + cg * NT * 8 * LDK, LDK, KC);
     }
   }
-  T* ob = out + ((long long)b * H + i) * W * CO;
+  TO* ob = out + ((long long)b * H + i) * W * CO;
   for_each(acc, [&](int r, int c, float v) {
     const int j = j0 + rg * 16 + r;
-    if (j < W) ob[(long long)j * CO + cg * NT * 8 + c] = from_f<T>(v);
+    if (j < W) ob[(long long)j * CO + cg * NT * 8 + c] = from_f<TO>(v);
   });
 }
 
-template <typename T>
+template <typename T, typename TO>
 cudaError_t launch(const void* x, const void* w, const float* pre, void* out, int B, int H,
                    int W, int C, int dil, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<T>();
-  cudaError_t err = set_smem(conv3x3_kernel<T>, smem);
+  cudaError_t err = set_smem(conv3x3_kernel<T, TO>, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((W + BP - 1) / BP, H, B);
-  conv3x3_kernel<T><<<grid, NTHREADS, smem, st>>>(static_cast<const T*>(x),
-                                                  static_cast<const T*>(w), pre,
-                                                  static_cast<T*>(out), H, W, C, dil);
+  conv3x3_kernel<T, TO><<<grid, NTHREADS, smem, st>>>(static_cast<const T*>(x),
+                                                      static_cast<const T*>(w), pre,
+                                                      static_cast<TO*>(out), H, W, C, dil);
   return cudaGetLastError();
 }
 
@@ -110,15 +112,17 @@ extern "C" {
 
 // x (B, H, W, C) NHWC; w (9, 288, C): tap-major, [co][ci] per tap; pre null
 // or (B, 2, C) float32 [inv; shift]; out (B, H, W, 288). C % 96 == 0.
-// dtype: 0 float32, 1 bfloat16.
+// dtype: 0 float32, 1 bfloat16; out_f32: 1 writes a float32 out whatever
+// the input dtype, 0 writes the input dtype.
 int conv3x3_fwd(const void* x, const void* w, const float* pre, void* out, int B, int H, int W,
-                int C, int Co, int dil, int dtype, void* stream) {
+                int C, int Co, int dil, int dtype, int out_f32, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (Co != CO || C % KC != 0 || dil < 1 || B <= 0 || H <= 0 || W <= 0 || H > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return launch<float>(x, w, pre, out, B, H, W, C, dil, st);
-  if (dtype == 1) return launch<bf16>(x, w, pre, out, B, H, W, C, dil, st);
+  if (dtype == 0) return launch<float, float>(x, w, pre, out, B, H, W, C, dil, st);
+  if (dtype == 1 && out_f32) return launch<bf16, float>(x, w, pre, out, B, H, W, C, dil, st);
+  if (dtype == 1) return launch<bf16, bf16>(x, w, pre, out, B, H, W, C, dil, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -45,17 +45,6 @@ constexpr int MF = 320;    // random features
 constexpr int EP = 72;     // dh + 1 (the ones column) padded to 8
 constexpr int NTHREADS = 256;
 
-// row (problem p, position l) of the strided pair tensor
-struct Rows {
-  long long s_hi, s_lo, s_pos;
-  int p_inner, L;
-  __device__ __forceinline__ long long offset(long long row) const {
-    const long long p = row / L;
-    const int l = (int)(row % L);
-    return (p / p_inner) * s_hi + (p % p_inner) * s_lo + l * s_pos;
-  }
-};
-
 template <typename T>
 struct GemmCfg {
   static constexpr int BM = sizeof(T) == 2 ? 64 : 32;

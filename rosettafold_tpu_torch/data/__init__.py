@@ -1,2 +1,2 @@
-"""Host-side data pipeline (numpy): A3M in, PDB out. The port's own copy of
-what `predict` uses from rosettafold_tpu/data, held equal by tests."""
+"""Host-side data pipeline (numpy): A3M and PDB in, PDB out, and the training
+batches. The port's own copy of rosettafold_tpu/data, held equal by tests."""

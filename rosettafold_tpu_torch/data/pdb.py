@@ -1,8 +1,9 @@
-"""PDB backbone output: N/CA/C coordinates with plDDT in the B-factor column."""
+"""PDB backbone I/O: N/CA/C coordinates out (plDDT in the B-factor column),
+and backbone coordinates in for training targets."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -14,6 +15,7 @@ _THREE = {
     "M": "MET", "F": "PHE", "P": "PRO", "S": "SER", "T": "THR", "W": "TRP",
     "Y": "TYR", "V": "VAL", "-": "GLY",
 }
+_ONE = {v: k for k, v in _THREE.items() if k != "-"}
 _BB_ATOMS = ("N", "CA", "C")
 
 
@@ -44,3 +46,31 @@ def write_pdb(
                 )
                 serial += 1
         f.write("TER\nEND\n")
+
+
+def read_pdb_backbone(path: str, chain: Optional[str] = None) -> Tuple[np.ndarray, str]:
+    """N/CA/C coordinates of a PDB file: (xyz (L, 3, 3) float32, sequence).
+    Residues missing a backbone atom are dropped."""
+    residues, order = {}, []
+    with open(path) as f:
+        for line in f:
+            if not line.startswith("ATOM"):
+                continue
+            atom = line[12:16].strip()
+            ch = line[21]
+            if atom not in _BB_ATOMS or (chain is not None and ch != chain):
+                continue
+            key = (ch, line[22:27])  # residue number with insertion code
+            if key not in residues:
+                residues[key] = {"res3": line[17:20].strip()}
+                order.append(key)
+            residues[key][atom] = (float(line[30:38]), float(line[38:46]), float(line[46:54]))
+    xyz, seq = [], []
+    for key in order:
+        r = residues[key]
+        if all(a in r for a in _BB_ATOMS):
+            xyz.append([r[a] for a in _BB_ATOMS])
+            seq.append(_ONE.get(r["res3"], "A"))
+    if not xyz:
+        raise ValueError(f"no complete backbone residues in {path}")
+    return np.asarray(xyz, dtype=np.float32), "".join(seq)

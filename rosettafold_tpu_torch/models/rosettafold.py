@@ -4,6 +4,13 @@ Contract: model(msa, seq, aa_idx) -> (logits{theta,phi,omega,dist}, xyz, plddt)
 with msa (B, N, L) int, seq (B, L), aa_idx (B, L); logits[*] (B, L, L, bins),
 xyz (B, L, 3, 3), plddt (B, L); float32 outputs whatever the compute dtype.
 
+The model is built in eval mode (JAX's deterministic=True); `model.train()`
+is JAX's deterministic=False: dropout, and the kernel dispatch JAX keys on it
+(C without its folded LN/residual, no D, F's pre-op unfused). With
+`cfg.remat`, while autograd records, the blocks, the initial coordinates and
+the head run under `torch.utils.checkpoint` (the modules JAX remats), whose
+saved RNG state gives the recomputation the forward's dropout masks.
+
 Blocks run in a Python loop. Submodule names follow the unscanned flax tree
 (`two_track_{i}`, `three_track_{i}`, `final_block`, ...), so a scanned JAX
 checkpoint loads through `bridge.state_dict_from_flax`, which unstacks it.
@@ -21,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .embeddings import MsaEmbedding, PairEmbedding
 from .heads import PredictionHead
@@ -102,14 +110,12 @@ def check_supported(cfg):
             f"se3_impl={cfg.se3_impl!r}: only the dense SE(3) layout is ported")
     if cfg.long_chunk is not None or cfg.head_chunk is not None:
         raise NotImplementedError("the row-chunked long-L paths are not ported yet")
-    if cfg.remat:
-        raise NotImplementedError("rematerialization is a training feature, not ported")
 
 
 class RoseTTAFold(nn.Module):
-    """Top-level three-track model, inference. Build with a RoseTTAFoldConfig;
-    `device` places parameters and buffers; `seed` draws a random init in the
-    spirit of flax's defaults (see `init_like_flax`)."""
+    """Top-level three-track model. Build with a RoseTTAFoldConfig; `device`
+    places parameters and buffers; `seed` draws a random init in the spirit of
+    flax's defaults (see `init_like_flax`). Built in eval mode."""
 
     def __init__(self, config, device=None, seed: int = 0, init: bool = True):
         super().__init__()
@@ -143,6 +149,12 @@ class RoseTTAFold(nn.Module):
         if device is not None:
             self.to(device)
 
+    def _run(self, module, *args):
+        """module(*args), rematerialized in the backward under cfg.remat."""
+        if self.config.remat and torch.is_grad_enabled():
+            return checkpoint(module, *args, use_reentrant=False)
+        return module(*args)
+
     def forward(self, msa, seq, aa_idx):
         cfg = self.config
         x = self.msa_emb(msa, aa_idx)
@@ -151,12 +163,13 @@ class RoseTTAFold(nn.Module):
         if self.dtype is not None:
             pair = pair.to(self.dtype)  # bf16 pair stream between blocks
         for i in range(cfg.n_two_track_blocks):
-            x, pair = getattr(self, f"two_track_{i}")(x, pair)
-        xyz = self.initial_coords(x, pair, seq_onehot, aa_idx)
+            x, pair = self._run(getattr(self, f"two_track_{i}"), x, pair)
+        xyz = self._run(self.initial_coords, x, pair, seq_onehot, aa_idx)
         for i in range(self.n_tt):
-            x, pair, xyz = getattr(self, f"three_track_{i}")(x, pair, xyz, seq_onehot, aa_idx)
-        x, pair, xyz, plddt = self.final_block(x, pair, xyz, seq_onehot, aa_idx)
-        logits = self.prediction_head(pair)
+            x, pair, xyz = self._run(getattr(self, f"three_track_{i}"), x, pair, xyz, seq_onehot,
+                                     aa_idx)
+        x, pair, xyz, plddt = self._run(self.final_block, x, pair, xyz, seq_onehot, aa_idx)
+        logits = self._run(self.prediction_head, pair)
         return ({k: v.float() for k, v in logits.items()}, xyz.float(), plddt.float())
 
 

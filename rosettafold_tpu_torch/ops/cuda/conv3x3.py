@@ -1,11 +1,15 @@
 """Fused 3x3 dilated SAME convolution, NHWC (kernel F): wrapper of
-csrc/conv3x3.cu and its plain PyTorch version.
+csrc/conv3x3.cu, its plain PyTorch version and its backward.
 
-Port of rosettafold_tpu/ops/pallas/conv3x3.py, forward only:
-x (B, H, W, C), w (3, 3, C, Co) HWIO in the JAX function's layout, pre None or
-(inv, shift), each (B, C) float32: the pre-op elu(x * inv + shift) applied to
-x before the conv. Out (B, H, W, Co) in `out_dtype`, which must be x's dtype
-on the card. float32 and bfloat16; float32 accumulation.
+Port of rosettafold_tpu/ops/pallas/conv3x3.py: x (B, H, W, C), w (3, 3, C,
+Co) HWIO in the JAX function's layout, pre None or (inv, shift), each (B, C)
+float32: the pre-op elu(x * inv + shift) applied to x before the conv. Out
+(B, H, W, Co) in `out_dtype`: x's dtype or float32. float32 and bfloat16;
+float32 accumulation. `conv3x3_fused` is differentiable with JAX's backward
+(`_bwd_rule`): dx is kernel F itself on the cotangent with flipped,
+transposed weights and float32 output (counted in `bwd_launches`), dw nine
+products of the shifted activations with the cotangent, and the pre-op's
+cotangent goes through autograd.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ import torch.nn.functional as F
 
 from . import build
 
-launches = 0  # kernel launches made by this process
+launches = 0  # forward launches made by this process
+bwd_launches = 0  # input-gradient launches (the backward's dx) made by this process
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -37,8 +42,7 @@ def conv3x3_plain(x, w, pre, dilation, out_dtype):
     """The kernel's math (JAX `shifted_gemm_conv`): the pre-op, then nine
     shifted GEMMs of x's-dtype values accumulated in float32."""
     if pre is not None:  # elu(x * inv + shift) in float32, rounded to x's dtype
-        inv, shift = pre
-        x = F.elu(x.float() * inv[:, None, None, :] + shift[:, None, None, :]).to(x.dtype)
+        x = _pre_op(x, *pre)
     d = dilation
     acc = None
     for ki in range(3):
@@ -68,17 +72,17 @@ def _check(x, w, pre, dilation):
         raise ValueError("all operands must be on one device")
 
 
-def _launch(x, w, pre, dilation, out_dtype):
-    global launches
-    if out_dtype != x.dtype:
-        raise TypeError(f"conv kernel writes x's dtype: {out_dtype} != {x.dtype}")
+def _launch(x, w, pre, dilation, out_dtype, bwd):
+    global launches, bwd_launches
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"conv kernel writes x's dtype or float32, not {out_dtype}")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("conv kernel needs a contiguous, 16-byte aligned x")
     B, H, W, C = x.shape
     Co = w.shape[-1]
     if Co != 288 or C % 96:
         raise ValueError(f"conv kernel takes Co = 288 and C % 96 == 0: C={C} Co={Co}")
-    out = torch.empty((B, H, W, Co), dtype=x.dtype, device=x.device)
+    out = torch.empty((B, H, W, Co), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
     lib = build.load("conv3x3")
@@ -86,22 +90,91 @@ def _launch(x, w, pre, dilation, out_dtype):
     pre_arr = None if pre is None else torch.stack(pre, 1).contiguous()  # (B, 2, C)
     fn = lib.conv3x3_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = fn(build.ptr(x), build.ptr(wk),
             None if pre_arr is None else build.ptr(pre_arr), build.ptr(out),
-            B, H, W, C, Co, int(dilation), _DTYPES[x.dtype], build.stream_of(x))
+            B, H, W, C, Co, int(dilation), _DTYPES[x.dtype], int(out_dtype == torch.float32),
+            build.stream_of(x))
     build.check(lib, rc, "conv3x3_fwd")
-    launches += 1
+    if bwd:
+        bwd_launches += 1
+    else:
+        launches += 1
     return out
 
 
-def conv3x3_fused(x, w, pre=None, dilation=1, out_dtype=None):
-    """3x3 dilated SAME conv with the optional pre-op: the kernel on a CUDA
-    tensor, the plain version on a CPU one."""
-    out_dtype = out_dtype or x.dtype
-    _check(x, w, pre, dilation)
+def _conv(x, w, pre, dilation, out_dtype, bwd=False):
+    """The kernel on a CUDA tensor, the plain version on a CPU one; `bwd`
+    counts the launch as the backward's input gradient."""
     if x.device.type == "cpu":
         return conv3x3_plain(x, w, pre, dilation, out_dtype)
     if x.device.type == "cuda":
-        return _launch(x, w, pre, dilation, out_dtype)
+        return _launch(x, w, pre, dilation, out_dtype, bwd)
     raise ValueError(f"unsupported device {x.device}")
+
+
+def _pre_op(x, inv, shift):
+    return F.elu(x.float() * inv[:, None, None, :] + shift[:, None, None, :]).to(x.dtype)
+
+
+def conv3x3_input_grad(g, w, dilation):
+    """dx of the conv without pre-op, float32: the conv of the cotangent
+    (rounded to w's dtype) with flip(w, (0, 1)).swapaxes(2, 3)."""
+    w_t = torch.flip(w, (0, 1)).transpose(2, 3)
+    gc = g.to(w.dtype).contiguous()
+    _check(gc, w_t, None, dilation)
+    return _conv(gc, w_t, None, dilation, torch.float32, bwd=True)
+
+
+def conv3x3_weight_grad(a, g, dilation):
+    """dw (3, 3, C, Co): per tap, the L^2 contraction of the shifted
+    activations with the cotangent, float32 sums in a's dtype (JAX's dw)."""
+    d, C, Co = dilation, a.shape[-1], g.shape[-1]
+    g2 = g.to(a.dtype).reshape(-1, Co)
+    taps = [_shift2d(a, (ki - 1) * d, (kj - 1) * d).reshape(-1, C).t() @ g2
+            for ki in range(3) for kj in range(3)]
+    return torch.stack(taps).reshape(3, 3, C, Co)
+
+
+def conv3x3_backward(x, w, pre, dilation, g):
+    """JAX `_bwd_rule`: (dx, dw, dpre) with dpre None or (dinv, dshift)."""
+    if pre is None:
+        dx = conv3x3_input_grad(g, w, dilation).to(x.dtype)
+        return dx, conv3x3_weight_grad(x, g, dilation).to(w.dtype), None
+    with torch.enable_grad():
+        xr, inv, shift = (t.detach().requires_grad_() for t in (x, *pre))
+        a = _pre_op(xr, inv, shift)
+    da = conv3x3_input_grad(g, w, dilation)
+    dw = conv3x3_weight_grad(a.detach(), g, dilation).to(w.dtype)
+    dx, dinv, dshift = torch.autograd.grad(a, (xr, inv, shift), da.to(a.dtype))
+    return dx, dw, (dinv, dshift)
+
+
+class _Conv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, inv, shift, dilation, out_dtype):
+        pre = None if inv is None else (inv, shift)
+        out = _conv(x, w, pre, dilation, out_dtype)
+        ctx.save_for_backward(x, w, inv, shift)
+        ctx.dilation = dilation
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, inv, shift = ctx.saved_tensors
+        pre = None if inv is None else (inv, shift)
+        dx, dw, dpre = conv3x3_backward(x, w, pre, ctx.dilation, g)
+        dinv, dshift = (None, None) if dpre is None else dpre
+        return dx, dw, dinv, dshift, None, None
+
+
+def conv3x3_fused(x, w, pre=None, dilation=1, out_dtype=None):
+    """3x3 dilated SAME conv with the optional pre-op, differentiable: the
+    kernel on a CUDA tensor, the plain version on a CPU one; without grad
+    mode the forward alone, outside autograd."""
+    out_dtype = out_dtype or x.dtype
+    _check(x, w, pre, dilation)
+    if not torch.is_grad_enabled():
+        return _conv(x, w, pre, int(dilation), out_dtype)
+    inv, shift = (None, None) if pre is None else pre
+    return _Conv3x3.apply(x, w, inv, shift, int(dilation), out_dtype)

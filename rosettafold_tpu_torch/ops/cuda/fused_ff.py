@@ -1,10 +1,11 @@
 """Fused pre-LN feed-forward residual (kernel D): wrapper of csrc/fused_ff.cu
 and its plain PyTorch version.
 
-Port of rosettafold_tpu/ops/pallas/fused_ff.py, forward only:
+Port of rosettafold_tpu/ops/pallas/fused_ff.py:
 out = x + fc2(relu(fc1(LayerNorm(x)))) over the last axis of x (..., D), in
 x's dtype (float32 or bfloat16). Weights in the JAX function's layout:
-w1 (D, F), w2 (F, D) in x's dtype; gamma, beta, b1, b2 float32.
+w1 (D, F), w2 (F, D) in x's dtype; gamma, beta, b1, b2 float32. The backward
+is JAX's (`_bwd_rule`): the vjp of the plain version, recomputed.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from ...models.layers import layer_norm
 from . import build
+from .grad import plain_vjp
 
 launches = 0  # kernel launches made by this process
 
@@ -72,12 +74,33 @@ def _launch(x, gamma, beta, w1, b1, w2, b2, ln_eps):
     return out
 
 
-def fused_ln_ff_residual(x, gamma, beta, w1, b1, w2, b2, ln_eps):
-    """x + FF(LayerNorm(x)): the kernel on a CUDA tensor, the plain version on
-    a CPU one."""
-    _check(x, gamma, beta, w1, b1, w2, b2)
+def _forward(*args):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    x = args[0]
     if x.device.type == "cpu":
-        return fused_ff_plain(x, gamma, beta, w1, b1, w2, b2, ln_eps)
+        return fused_ff_plain(*args)
     if x.device.type == "cuda":
-        return _launch(x, gamma, beta, w1, b1, w2, b2, ln_eps)
+        return _launch(*args)
     raise ValueError(f"unsupported device {x.device}")
+
+
+class _FusedFF(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, w1, b1, w2, b2, ln_eps):
+        ctx.save_for_backward(x, gamma, beta, w1, b1, w2, b2)
+        ctx.ln_eps = ln_eps
+        return _forward(x, gamma, beta, w1, b1, w2, b2, ln_eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        return (*plain_vjp(fused_ff_plain, ctx.saved_tensors, gy, ctx.ln_eps), None)
+
+
+def fused_ln_ff_residual(x, gamma, beta, w1, b1, w2, b2, ln_eps):
+    """x + FF(LayerNorm(x)), differentiable: the kernel on a CUDA tensor, the
+    plain version on a CPU one; without grad mode the forward alone, outside
+    autograd."""
+    _check(x, gamma, beta, w1, b1, w2, b2)
+    if not torch.is_grad_enabled():
+        return _forward(x, gamma, beta, w1, b1, w2, b2, ln_eps)
+    return _FusedFF.apply(x, gamma, beta, w1, b1, w2, b2, ln_eps)

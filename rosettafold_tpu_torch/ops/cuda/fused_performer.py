@@ -1,8 +1,9 @@
-"""Fused generalized-FAVOR+ attention layer (kernel C): wrapper of
-csrc/fused_performer.cu and its plain PyTorch version.
+"""Fused generalized-FAVOR+ attention layer: kernel C (forward,
+csrc/fused_performer.cu) and kernel C' (backward, csrc/fused_performer_bwd.cu),
+their wrappers and plain PyTorch versions.
 
-Port of rosettafold_tpu/ops/pallas/fused_performer.py, forward only, with the
-JAX functions' names, argument order and weight layout:
+Port of rosettafold_tpu/ops/pallas/fused_performer.py, with the JAX
+functions' names, argument order and weight layout:
   fused_ln_performer_residual(x (R, L, D), gamma, beta, wq, wk, wv, wo, bo,
       projection, scale, kernel_eps, heads, dim_head, ln_eps)
       = x + Attn(LayerNorm(x)), attending over L;
@@ -11,8 +12,13 @@ JAX functions' names, argument order and weight layout:
       kernel_eps, heads, dim_head) = Attn(x), no LN and no residual.
 wq, wk, wv (D, heads*dim_head), wo (heads*dim_head, D) and bo (D,) in x's
 dtype (float32 or bfloat16); gamma, beta float32; projection (m, dim_head).
-The kernel reads both axes in place through strides; `launches` counts calls
-of these functions (each is three CUDA launches: projection, FAVOR+, output).
+The kernels read both axes in place through strides. All four functions
+are differentiable with JAX's backward: C' for the attention (no gradient
+for `projection`, as JAX returns zeros), LN(x) recomputed and its cotangent
+routed through autograd in the LN forms (`_bwd_rule_lnres`). `launches`
+counts calls of C (three CUDA launches each: projection, FAVOR+, output),
+`bwd_launches` calls of C' (five: projections, FAVOR+, dx, weight-gradient
+partials, their sum).
 """
 
 from __future__ import annotations
@@ -24,7 +30,8 @@ import torch
 from ...models.layers import layer_norm
 from . import build
 
-launches = 0  # kernel calls made by this process
+launches = 0  # kernel C calls made by this process
+bwd_launches = 0  # kernel C' calls made by this process
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -135,14 +142,199 @@ def _launch(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim
     return out
 
 
-def _run(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim_head, axis):
-    _check(x, (wq, wk, wv, wo, bo), ln, projection, heads, dim_head)
-    args = (x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim_head, axis)
+def performer_bwd_plain(x, gy, wq, wk, wv, wo, projection, scale, kernel_eps, heads,
+                        dim_head):
+    """JAX `_bwd_kernel` in plain PyTorch on (R, L, D) rows x of the compute
+    dtype and the cotangent gy of Attn(x): its roundings to the compute dtype,
+    the ones column folding ksum into ctx and the gden column folding g_ksum
+    into g_ctx. Returns (dx, dwq, dwk, dwv, dwo, dbo), dbo float32."""
+    f, cdt = torch.float32, x.dtype
+    R, L, D = x.shape
+    hd = heads * dim_head
+
+    def mm(a, b):
+        return a.to(f) @ b.to(f)
+
+    def split(t):  # (R, L, h*dh) -> (R, h, L, dh)
+        return t.reshape(R, L, heads, dim_head).transpose(1, 2)
+
+    def merge(t):  # (R, h, L, dh) -> (R, L, h*dh)
+        return t.transpose(1, 2).reshape(R, L, hd)
+
+    gy = gy.to(cdt)
+    q = split((mm(x, wq) * scale).to(cdt))
+    k = split((mm(x, wk) * scale).to(cdt))
+    v = split(mm(x, wv).to(cdt))
+    go = split(mm(gy, wo.t()))
+    proj = projection.to(cdt)
+    sq, sk = mm(q, proj.t()), mm(k, proj.t())
+    phi_q = (torch.relu(sq) + kernel_eps).to(cdt)
+    phi_k = (torch.relu(sk) + kernel_eps).to(cdt)
+    v_ext = torch.cat([v, torch.ones_like(v[..., :1])], -1)
+    ctx = mm(phi_k.transpose(-1, -2), v_ext).to(cdt)      # (R, h, m, dh + 1)
+    num = mm(phi_q, ctx)
+    r = 1.0 / torch.clamp_min(num[..., dim_head:], 1e-12)
+    o = num[..., :dim_head] * r
+    gden = -(go * o).sum(-1, keepdim=True) * r
+    gnum_ext = torch.cat([go * r, gden], -1).to(cdt)
+    g_pq = mm(gnum_ext, ctx.transpose(-1, -2))             # d phi_q
+    g_ctx = mm(phi_q.transpose(-1, -2), gnum_ext).to(cdt)  # [d ctx | g_ksum]
+    g_pk = mm(v_ext, g_ctx.transpose(-1, -2))              # d phi_k
+    g_sq = (g_pq * (sq > 0)).to(cdt)
+    g_sk = (g_pk * (sk > 0)).to(cdt)
+    gq = (merge(mm(g_sq, proj)) * scale).to(cdt)
+    gk = (merge(mm(g_sk, proj)) * scale).to(cdt)
+    gv = merge(mm(phi_k, g_ctx[..., :dim_head])).to(cdt)
+    att = merge(o).to(cdt)
+    dx = (mm(gq, wq.t()) + mm(gk, wk.t()) + mm(gv, wv.t())).to(cdt)
+    rows = lambda t: t.reshape(-1, t.shape[-1])  # noqa: E731
+    dw = [mm(rows(x).t(), rows(g)).to(w.dtype) for g, w in ((gq, wq), (gk, wk), (gv, wv))]
+    dwo = mm(rows(att).t(), rows(gy)).to(wo.dtype)
+    return (dx, *dw, dwo, rows(gy).to(f).sum(0))
+
+
+def _as_rows(t, axis):
+    """(R, L, D) rows attended over: axis 1 of a 4D t is transposed, as JAX's
+    `_bwd_rule_axis1` does."""
+    if t.dim() == 4 and axis == 1:
+        t = t.transpose(1, 2)
+    return t.reshape(-1, *t.shape[-2:])
+
+
+def _launch_bwd(y, gy, wq, wk, wv, wo, projection, scale, kernel_eps, heads, dim_head, axis):
+    global bwd_launches
+    D = y.shape[-1]
+    m = projection.shape[0]
+    if (D, heads, dim_head, m) != (288, 8, 64, 320):
+        raise ValueError("FAVOR+ backward kernel takes D = 288, 8 heads of 64, 320 features: "
+                         f"D={D} heads={heads} dim_head={dim_head} m={m}")
+    if y.data_ptr() % 16 or gy.data_ptr() % 16:
+        raise ValueError("FAVOR+ backward kernel needs 16-byte aligned y, gy")
+    B, L1, L2 = y.shape[:3] if y.dim() == 4 else (1, *y.shape[:2])
+    if axis == 1:
+        P, L, p_inner, s_lo, s_pos = B * L2, L1, L2, D, L2 * D
+    else:
+        P, L, p_inner, s_lo, s_pos = B * L1, L2, L1, L2 * D, D
+    if P > 65535:
+        raise ValueError(f"{P} row-problems exceed the kernel grid")
+    lib = build.load("fused_performer_bwd")
+    cdt, dev, M = y.dtype, y.device, P * L
+    hd = heads * dim_head
+    lib.fused_performer_bwd_wgrad_elems.restype = ctypes.c_int
+    n_w = lib.fused_performer_bwd_wgrad_elems()
+    splits = max(1, min(32, -(-M // 2048)))
+    w_lin = [w.t().contiguous() for w in (wq, wk, wv)]  # nn.Linear layout
+    w3 = torch.cat([wq, wk, wv], 1).contiguous()
+    wo_c, proj = wo.contiguous(), projection.to(cdt).contiguous()
+    qkv = torch.empty((M, 3 * hd), dtype=cdt, device=dev)
+    g3 = torch.empty((M, 3 * hd), dtype=cdt, device=dev)
+    att = torch.empty((M, hd), dtype=cdt, device=dev)
+    go = torch.empty((M, hd), dtype=torch.float32, device=dev)
+    part = torch.empty((splits, n_w), dtype=torch.float32, device=dev)
+    wgrad = torch.empty(n_w, dtype=torch.float32, device=dev)
+    dy = torch.empty_like(y)
+    fn = lib.fused_performer_bwd
+    fn.restype = ctypes.c_int
+    c_p, c_f, c_i, c_ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes = ([c_p] * 8 + [c_f, c_f] + [c_p] * 6 + [c_i, c_p, c_ll, c_i, c_ll, c_ll, c_ll]
+                   + [c_i] * 6 + [c_p])
+    rc = fn(build.ptr(y), build.ptr(gy), *(build.ptr(w) for w in w_lin), build.ptr(wo_c),
+            build.ptr(w3), build.ptr(proj), float(scale), float(kernel_eps), build.ptr(qkv),
+            build.ptr(go), build.ptr(att), build.ptr(g3), build.ptr(dy), build.ptr(part),
+            splits, build.ptr(wgrad), P, L, L1 * L2 * D, s_lo, s_pos, p_inner, D, heads,
+            dim_head, m, _DTYPES[cdt], build.stream_of(y))
+    build.check(lib, rc, "fused_performer_bwd")
+    bwd_launches += 1
+    n = D * hd
+    dwq, dwk, dwv = (wgrad[i * n:(i + 1) * n].view(D, hd).to(w.dtype)
+                     for i, w in enumerate((wq, wk, wv)))
+    dwo_ext = wgrad[3 * n:].view(hd + 1, D)
+    return dy, dwq, dwk, dwv, dwo_ext[:hd].to(wo.dtype), dwo_ext[hd]
+
+
+def attn_backward_plain(y, gy, weights, projection, statics, axis):
+    """(dy, dwq, dwk, dwv, dwo, dbo) of Attn(y), y (R, L, D) or 4D attended
+    over `axis`: performer_bwd_plain on the rows."""
+    wq, wk, wv, wo = weights
+    dyr, *dw = performer_bwd_plain(_as_rows(y, axis), _as_rows(gy, axis), wq, wk, wv, wo,
+                                   projection, *statics)
+    if y.dim() == 4 and axis == 1:
+        B, L1, L2, D = y.shape
+        dy = dyr.reshape(B, L2, L1, D).transpose(1, 2)
+    else:
+        dy = dyr.reshape(y.shape)
+    return (dy, *dw)
+
+
+def attn_backward(y, gy, weights, projection, statics, axis):
+    """attn_backward_plain's result: C' on CUDA tensors, the plain version on
+    CPU ones. statics: (scale, kernel_eps, heads, dim_head)."""
+    if y.device.type == "cuda":
+        return _launch_bwd(y, gy, *weights, projection, *statics, axis)
+    if y.device.type == "cpu":
+        return attn_backward_plain(y, gy, weights, projection, statics, axis)
+    raise ValueError(f"unsupported device {y.device}")
+
+
+def performer_backward(x, ln, wq, wk, wv, wo, projection, scale, kernel_eps, heads, dim_head,
+                       axis, gy, core=None):
+    """The gradients of performer_plain's function (JAX's backward rules):
+    (dx, dgamma, dbeta, dwq, dwk, dwv, dwo, dbo), dgamma and dbeta None
+    without LN. `core` computes the attention's part: attn_backward (C' on
+    the card) unless given."""
+    core = core or attn_backward
+    gy = gy.to(x.dtype).contiguous()
+    statics = (scale, kernel_eps, heads, dim_head)
+    if ln is None:
+        dx, *dw = core(x, gy, (wq, wk, wv, wo), projection, statics, axis)
+        return (dx, None, None, *dw)
+    with torch.enable_grad():
+        xr, gamma, beta = (t.detach().requires_grad_() for t in (x, ln[0], ln[1]))
+        y = layer_norm(xr, gamma, beta, ln[2]).to(x.dtype)
+    dy, *dw = core(y.detach().contiguous(), gy, (wq, wk, wv, wo), projection, statics, axis)
+    dx_ln, dgamma, dbeta = torch.autograd.grad(y, (xr, gamma, beta), dy)
+    return ((gy.to(dx_ln.dtype) + dx_ln).to(x.dtype), dgamma, dbeta, *dw)
+
+
+def _forward(*args):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    x = args[0]
     if x.device.type == "cpu":
         return performer_plain(*args)
     if x.device.type == "cuda":
         return _launch(*args)
     raise ValueError(f"unsupported device {x.device}")
+
+
+class _Performer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, gamma, beta, wq, wk, wv, wo, bo, projection, statics):
+        """statics: (scale, kernel_eps, heads, dim_head, ln_eps, axis)."""
+        scale, kernel_eps, heads, dim_head, ln_eps, axis = statics
+        ln = None if gamma is None else (gamma, beta, ln_eps)
+        ctx.save_for_backward(x, gamma, beta, wq, wk, wv, wo, projection)
+        ctx.statics = statics
+        return _forward(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads,
+                        dim_head, axis)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, beta, wq, wk, wv, wo, projection = ctx.saved_tensors
+        scale, kernel_eps, heads, dim_head, ln_eps, axis = ctx.statics
+        ln = None if gamma is None else (gamma, beta, ln_eps)
+        grads = performer_backward(x, ln, wq, wk, wv, wo, projection, scale, kernel_eps, heads,
+                                   dim_head, axis, gy)
+        return (*grads, None, None)
+
+
+def _run(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim_head, axis):
+    _check(x, (wq, wk, wv, wo, bo), ln, projection, heads, dim_head)
+    if not torch.is_grad_enabled():  # the forward alone, outside autograd
+        return _forward(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads,
+                        dim_head, axis)
+    gamma, beta, ln_eps = (None, None, None) if ln is None else ln
+    return _Performer.apply(x, gamma, beta, wq, wk, wv, wo, bo, projection,
+                            (scale, kernel_eps, heads, dim_head, ln_eps, axis))
 
 
 def fused_ln_performer_residual(x, gamma, beta, wq, wk, wv, wo, bo, projection, scale,

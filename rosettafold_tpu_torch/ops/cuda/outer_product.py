@@ -1,11 +1,13 @@
 """Fused outer-product mean (kernel E): wrapper of csrc/outer_product.cu and
 its plain PyTorch version.
 
-Port of rosettafold_tpu/ops/pallas/outer_product.py, forward only:
+Port of rosettafold_tpu/ops/pallas/outer_product.py:
 x (i side, float32) and y (j side) are (B, N, L, u); gamma, beta (u*u,)
 float32; w (u*u, Dp) in y's dtype (the JAX function's layout); b (Dp,)
 float32. Returns LayerNorm(sum_n x_i (x) y_j) . w + b as (B, L, L, Dp) in
-`out_dtype`, which must be y's dtype on the card.
+`out_dtype`, which must be y's dtype on the card. The backward is JAX's
+(`_bwd`): the vjp of the plain version recomputed over chunks of 128 i-rows,
+so one chunk's (B, 128, L, u*u) slab is alive at a time.
 """
 
 from __future__ import annotations
@@ -15,8 +17,10 @@ import ctypes
 import torch
 
 from . import build
+from .grad import plain_vjp
 
 launches = 0  # kernel launches made by this process
+BWD_CHUNK = 128  # i-rows recomputed per step of the backward (JAX `_BWD_CHUNK`)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -26,8 +30,9 @@ def outer_product_plain(x, y, gamma, beta, w, b, eps, out_dtype):
     float32 products and two-pass LN statistics, the LN output rounded to
     y's dtype, float32 projection."""
     cdt = y.dtype
-    B, N, L, u = x.shape
-    op = torch.einsum("bniu,bnjv->bijuv", x.to(cdt).float(), y.float()).reshape(B, L, L, u * u)
+    B, N, Li, u = x.shape  # x may be a cut of the i side (the backward's chunks)
+    op = torch.einsum("bniu,bnjv->bijuv", x.to(cdt).float(), y.float())
+    op = op.reshape(B, Li, y.shape[2], u * u)
     mu = op.mean(-1, keepdim=True)
     var = ((op - mu) ** 2).mean(-1, keepdim=True)
     ln = (op - mu) * torch.rsqrt(var + eps) * gamma + beta
@@ -76,13 +81,43 @@ def _launch(x, y, gamma, beta, w, b, eps, out_dtype):
     return out
 
 
+def _forward(*args):
+    """The kernel on a CUDA tensor, the plain version on a CPU one."""
+    y = args[1]
+    if y.device.type == "cpu":
+        return outer_product_plain(*args)
+    if y.device.type == "cuda":
+        return _launch(*args)
+    raise ValueError(f"unsupported device {y.device}")
+
+
+class _OuterProductMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y, gamma, beta, w, b, eps, out_dtype):
+        ctx.save_for_backward(x, y, gamma, beta, w, b)
+        ctx.statics = (eps, out_dtype)
+        return _forward(x, y, gamma, beta, w, b, eps, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *rest = ctx.saved_tensors
+        L = x.shape[2]
+        dx, total = [], None
+        for i0 in range(0, L, BWD_CHUNK):
+            d = plain_vjp(outer_product_plain, (x[:, :, i0:i0 + BWD_CHUNK], *rest),
+                          g[:, i0:i0 + BWD_CHUNK], *ctx.statics)
+            dx.append(d[0])
+            part = [t.float() for t in d[1:]]  # summed over chunks in float32
+            total = part if total is None else [a + c for a, c in zip(total, part)]
+        return (torch.cat(dx, 2), *(t.to(r.dtype) for t, r in zip(total, rest)), None, None)
+
+
 def fused_outer_product_mean(x, y, gamma, beta, w, b, eps=1e-5, out_dtype=None):
-    """The fused OPM: the kernel on a CUDA tensor, the plain version on a CPU
-    one."""
+    """The fused OPM, differentiable: the kernel on a CUDA tensor, the plain
+    version on a CPU one; without grad mode the forward alone, outside
+    autograd."""
     out_dtype = out_dtype or y.dtype
     _check(x, y, gamma, beta, w, b)
-    if y.device.type == "cpu":
-        return outer_product_plain(x, y, gamma, beta, w, b, eps, out_dtype)
-    if y.device.type == "cuda":
-        return _launch(x, y, gamma, beta, w, b, eps, out_dtype)
-    raise ValueError(f"unsupported device {y.device}")
+    if not torch.is_grad_enabled():
+        return _forward(x, y, gamma, beta, w, b, eps, out_dtype)
+    return _OuterProductMean.apply(x, y, gamma, beta, w, b, eps, out_dtype)

@@ -1,11 +1,13 @@
 """Dense SE(3) attend (kernel B): wrapper of csrc/se3_attend.cu, its plain
 PyTorch version, and the weight stacking both read.
 
-Port of rosettafold_tpu/ops/pallas/se3_attend.py, forward and dense layout
-only. The kernel takes the natural layouts of that file's `xla_reference`:
+Port of rosettafold_tpu/ops/pallas/se3_attend.py, dense layout only. The
+kernel takes the natural layouts of that file's `xla_reference`:
 feat (B, J, S, ed); basis '{di},{do}' -> (B, J, S, 2do+1, 2di+1, nf);
 h {0: (B, L, m0, 1), 1: (B, L, m1, 3)} with S == L; mask (B, J, S) bool;
 qh (B, J, H*ck). Returns {d: (B, J, m_v, 2d+1)}: the GMABSE3 output. float32.
+The backward is JAX's (`_bwd_rule`): the vjp of the plain version,
+recomputed.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from . import build
+from .grad import plain_vjp
 
 launches = 0  # kernel launches made by this process
 
@@ -244,12 +247,50 @@ def _launch(feat, basis, h, mask, qh, stacked, meta: Meta):
     return z
 
 
-def gse3_attend(feat, basis, h, mask, qh, stacked, meta: Meta):
-    """Fused V/K partial convolutions + equivariant attention of one GSE3Res
-    layer: the kernel on CUDA tensors, the plain version on CPU ones."""
-    _check(feat, basis, h, mask, qh, stacked, meta)
+_BASIS_KEYS = ("0,0", "0,1", "1,0", "1,1")
+
+
+def _plain_flat(mask, meta, feat, qh, h0, h1, *rest):
+    """se3_attend_plain on flat operands: the basis in _BASIS_KEYS order, then
+    the five stacked weights; returns the outputs in f_value order."""
+    basis = dict(zip(_BASIS_KEYS, rest[:4]))
+    z = se3_attend_plain(feat, basis, {0: h0, 1: h1}, mask, qh, rest[4:], meta)
+    return [z[d] for d, _ in meta.f_value]
+
+
+def _forward(feat, basis, h, mask, qh, stacked, meta: Meta):
+    """The kernel on CUDA tensors, the plain version on CPU ones."""
     if mask.device.type == "cpu":
         return se3_attend_plain(feat, basis, h, mask, qh, stacked, meta)
     if mask.device.type == "cuda":
         return _launch(feat, basis, h, mask, qh, stacked, meta)
     raise ValueError(f"unsupported device {mask.device}")
+
+
+class _GSE3Attend(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, meta, mask, *flat):
+        ctx.meta = meta
+        ctx.save_for_backward(mask, *flat)
+        feat, qh, h0, h1, *rest = flat
+        z = _forward(feat, dict(zip(_BASIS_KEYS, rest[:4])), {0: h0, 1: h1}, mask, qh, rest[4:],
+                     meta)
+        return tuple(z[d] for d, _ in meta.f_value)
+
+    @staticmethod
+    def backward(ctx, *gz):
+        mask, *flat = ctx.saved_tensors
+        meta = ctx.meta
+        return (None, None, *plain_vjp(lambda *t: _plain_flat(mask, meta, *t), flat, list(gz)))
+
+
+def gse3_attend(feat, basis, h, mask, qh, stacked, meta: Meta):
+    """Fused V/K partial convolutions + equivariant attention of one GSE3Res
+    layer, differentiable: the kernel on CUDA tensors, the plain version on
+    CPU ones; without grad mode the forward alone, outside autograd."""
+    _check(feat, basis, h, mask, qh, stacked, meta)
+    if not torch.is_grad_enabled():
+        return _forward(feat, basis, h, mask, qh, stacked, meta)
+    z = _GSE3Attend.apply(meta, mask, feat, qh, h[0], h[1],
+                          *(basis[k] for k in _BASIS_KEYS), *stacked)
+    return {d: t for (d, _), t in zip(meta.f_value, z)}

@@ -1,9 +1,13 @@
-"""Tied row attention (kernel A): wrapper of csrc/tied_attention.cu and its
-plain PyTorch version.
+"""Tied row attention: kernel A (forward, csrc/tied_attention.cu) and kernel G
+(backward, csrc/tied_attention_bwd.cu), their wrappers and plain PyTorch
+versions.
 
-Port of rosettafold_tpu/ops/pallas/tied_attention.py, forward only:
-q, k (BH, L, ND); v (BH, L, NDv) -> out (BH, L, NDv) in the input dtype,
-lse (BH, L) float32. float32 and bfloat16 inputs; float32 accumulation.
+Port of rosettafold_tpu/ops/pallas/tied_attention.py: q, k (BH, L, ND); v
+(BH, L, NDv) -> out (BH, L, NDv) in the input dtype, lse (BH, L) float32.
+float32 and bfloat16 inputs; float32 accumulation. `tied_flash_attention` is
+differentiable: its backward is G from the saved (q, k, v, out, lse), as
+JAX's custom VJP. `launches` counts A, `bwd_launches` counts G (each call
+three CUDA launches: dsum, dk/dv, dq).
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ import torch
 
 from . import build
 
-launches = 0  # kernel launches made by this process
+launches = 0  # kernel A launches made by this process
+bwd_launches = 0  # kernel G launches made by this process
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -77,6 +82,68 @@ def tied_attention_forward(q, k, v):
     raise ValueError(f"unsupported device {q.device}")
 
 
+def tied_attention_bwd_plain(q, k, v, out, lse, g):
+    """JAX `_bwd` in plain PyTorch: dsum = sum(g * out) and p = exp(s - lse)
+    in float32, ds = p (g v^T - dsum); dq from ds rounded to k's dtype, dk
+    and dv from the float32 p and ds. Returns (dq, dk, dv)."""
+    f = torch.float32
+    dsum = (g.to(f) * out.to(f)).sum(-1, keepdim=True)
+    p = torch.exp(torch.einsum("bie,bje->bij", q.to(f), k.to(f)) - lse[..., None])
+    ds = p * (torch.einsum("bic,bjc->bij", g.to(f), v.to(f)) - dsum)
+    dv = torch.einsum("bij,bic->bjc", p, g.to(f))
+    dk = torch.einsum("bij,bie->bje", ds, q.to(f))
+    dq = torch.einsum("bij,bje->bie", ds.to(k.dtype).to(f), k.to(f))
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, out, lse, g):
+    global bwd_launches
+    BH, L, ND = q.shape
+    NDv = v.shape[-1]
+    if ND % 8 or NDv % 8:
+        raise ValueError(f"tied attention backward kernel needs ND, NDv % 8 == 0: {ND} {NDv}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, out, g)):
+        raise ValueError("tied attention backward kernel needs 16-byte aligned operands")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if L == 0:
+        return dq, dk, dv
+    lib = build.load("tied_attention_bwd")
+    dsum = torch.empty((BH, L), dtype=torch.float32, device=q.device)
+    fn = lib.tied_attention_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    rc = fn(*(build.ptr(t) for t in (q, k, v, out, lse, g, dsum, dq, dk, dv)),
+            BH, L, ND, NDv, _DTYPES[q.dtype], build.stream_of(q))
+    build.check(lib, rc, "tied_attention_bwd")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def tied_attention_backward(q, k, v, out, lse, g):
+    """(dq, dk, dv): kernel G on CUDA tensors, the plain version on CPU ones."""
+    g = g.to(out.dtype).contiguous()
+    if q.device.type == "cpu":
+        return tied_attention_bwd_plain(q, k, v, out, lse, g)
+    if q.device.type == "cuda":
+        return _launch_bwd(q, k, v, out, lse.contiguous(), g)
+    raise ValueError(f"unsupported device {q.device}")
+
+
+class _TiedFlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = tied_attention_forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return tied_attention_backward(*ctx.saved_tensors, g)
+
+
 def tied_flash_attention(q, k, v):
-    """softmax(q @ k^T over the last axis) @ v: (BH, L, NDv)."""
+    """softmax(q @ k^T over the last axis) @ v: (BH, L, NDv), differentiable;
+    without grad mode the forward alone, outside autograd."""
+    if torch.is_grad_enabled():
+        return _TiedFlashAttention.apply(q, k, v)
     return tied_attention_forward(q, k, v)[0]

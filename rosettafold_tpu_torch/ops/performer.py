@@ -56,7 +56,8 @@ def softmax_kernel_features(data, projection, *, is_query: bool, eps: float = 1e
     """Positive softmax-kernel features exp(w^T x' - |x'|^2/2 - stab)/sqrt(m).
 
     data (..., L, d); projection (m, d) -> (..., L, m) in data's dtype. Queries
-    stabilize with a per-position max, keys with a global max."""
+    stabilize with a per-position max, keys with a global max; the stabilizer
+    carries no gradient (JAX's stop_gradient)."""
     d = data.shape[-1]
     m = projection.shape[0]
     data_normalizer = d ** -0.25
@@ -68,7 +69,7 @@ def softmax_kernel_features(data, projection, *, is_query: bool, eps: float = 1e
         stab = proj.amax(-1, keepdim=True)
     else:
         stab = proj.amax(dim=(-1, -2), keepdim=True)
-    feats = ratio * (torch.exp(proj - diag - stab) + eps)
+    feats = ratio * (torch.exp(proj - diag - stab.detach()) + eps)
     return feats.to(data.dtype)
 
 

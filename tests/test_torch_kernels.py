@@ -476,3 +476,268 @@ def test_performer_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres):
     torch.cuda.synchronize()
     assert tfp.launches == before + 1
     _close(out, ref, 3e-5)
+
+
+# ------------------------------------------------------------ the backwards
+# Each wrapper is differentiable; on the CPU its backward runs the plain
+# versions (G, C' and F's float32 input gradient written out; D, E and B
+# by recomputation), held here against jax.vjp of the JAX functions at the
+# JAX gradient tests' tolerances (G 3e-5, tests/test_pallas.py:41,166; C'
+# 2e-4 + 1e-3 relative, :268,320; F 2e-5, tests/test_conv3x3.py:99).
+
+
+def _vjp_torch(fn, inputs, g):
+    """Gradients of fn(*inputs) for cotangent g, through autograd (inputs
+    None stay None)."""
+    leaves = [None if a is None else torch.from_numpy(np.array(a)).requires_grad_()
+              for a in inputs]
+    out = fn(*leaves)
+    wrt = [t for t in leaves if t is not None]
+    got = iter(torch.autograd.grad(out, wrt, torch.from_numpy(np.array(g))))
+    return [None if t is None else next(got).numpy() for t in leaves]
+
+
+@pytest.mark.parametrize("L", [20, 130])
+def test_tied_backward_plain_matches_jax(needs_jax, L):
+    q, k, v = _qkv(2, L, 48, 40, seed=L)
+    g = np.random.default_rng(L).normal(size=(2, L, 40)).astype(np.float32)
+    _, vjp = jax.vjp(jtied.tied_flash_attention, q, k, v)
+    want = vjp(g)
+    before = ttied.bwd_launches
+    got = _vjp_torch(ttied.tied_flash_attention, (q, k, v), g)
+    assert ttied.bwd_launches == before  # CPU tensors take the plain version
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=3e-5)
+
+
+@pytest.mark.parametrize("axis1", [False, True])
+@pytest.mark.parametrize("lnres", [True, False])
+def test_performer_backward_plain_matches_jax(needs_jax, axis1, lnres):
+    x, ln, w, statics = _performer_args((1, 128, 8) if axis1 else (4, 20), seed=2 + int(axis1))
+    gy = np.random.default_rng(5).normal(size=x.shape).astype(np.float32)
+    fn = {(True, True): "fused_ln_performer_residual_axis1",
+          (True, False): "fused_performer_layer_axis1",
+          (False, True): "fused_ln_performer_residual",
+          (False, False): "fused_performer_layer"}[axis1, lnres]
+    diff = (x, *ln, *w[:5]) if lnres else (x, *w[:5])  # projection: no gradient
+    tail = (*statics, 1e-5) if lnres else statics
+    _, vjp = jax.vjp(lambda *a: getattr(jfp, fn)(*a, w[5], *tail), *diff)
+    want = vjp(gy)
+    before = tfp.bwd_launches
+    got = _vjp_torch(lambda *a: getattr(tfp, fn)(*a, torch.from_numpy(w[5]), *tail), diff, gy)
+    assert tfp.bwd_launches == before
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-4, rtol=1e-3)
+
+
+@pytest.mark.parametrize("dilation", [1, 4])
+@pytest.mark.parametrize("with_pre", [False, True])
+def test_conv_backward_plain_matches_jax(needs_jax, dilation, with_pre):
+    x, w, pre = _conv_args(seed=dilation)
+    g = np.random.default_rng(6).normal(size=x.shape[:3] + (w.shape[-1],)).astype(np.float32)
+    args = (x, w, *pre) if with_pre else (x, w)
+
+    def jfn(x_, w_, *p):
+        return jconv.conv3x3_fused(x_, w_, tuple(p) if p else None, dilation, jnp.float32, 8)
+
+    _, vjp = jax.vjp(jfn, *args)
+    want = vjp(g)
+    before = tconv.bwd_launches
+    got = _vjp_torch(lambda x_, w_, *p: tconv.conv3x3_fused(x_, w_, tuple(p) if p else None,
+                                                            dilation), args, g)
+    assert tconv.bwd_launches == before
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=2e-5)
+
+
+def test_ff_and_opm_backward_match_jax(needs_jax):
+    """D and E: the recompute backward against jax.grad (the JAX functions'
+    plain backwards, `fused_ff._bwd_rule`, `outer_product._bwd`); E's with
+    its row chunks (BWD_CHUNK cut to 8 for 14 rows)."""
+    args = _ff_args()
+    gy = np.random.default_rng(7).normal(size=args[0].shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jff.fused_ln_ff_residual(*a, 1e-5), *args)
+    got = _vjp_torch(lambda *a: tff.fused_ln_ff_residual(*a, 1e-5), args, gy)
+    for a, b in zip(got, vjp(gy)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=2e-5)
+
+    rng = np.random.default_rng(8)
+    B, N, L, u, Dp = 1, 3, 14, 8, 20
+    x = rng.normal(size=(B, N, L, u)).astype(np.float32)
+    y = (x * rng.uniform(size=(B, N, L, 1))).astype(np.float32)
+    g_, b_ = _affine(rng, u * u)
+    w = (rng.normal(size=(u * u, Dp)) / u).astype(np.float32)
+    bias = (0.1 * rng.normal(size=Dp)).astype(np.float32)
+    gout = rng.normal(size=(B, L, L, Dp)).astype(np.float32)
+    opm = (x, y, g_, b_, w, bias)
+    _, vjp = jax.vjp(lambda *a: jopm.fused_outer_product_mean(*a, 1e-5, jnp.float32), *opm)
+    chunk, topm.BWD_CHUNK = topm.BWD_CHUNK, 8
+    try:
+        got = _vjp_torch(lambda *a: topm.fused_outer_product_mean(*a, 1e-5), opm, gout)
+    finally:
+        topm.BWD_CHUNK = chunk
+    for a, b in zip(got, vjp(gout)):
+        np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=2e-5)
+
+
+def test_se3_backward_matches_jax(needs_jax):
+    """B: the recompute backward against JAX's, which is the vjp of the
+    file's plain `xla_reference` (`se3_attend._bwd_rule`), for the node
+    features, the query, the edge features and the stacked weights."""
+    c = _se3_case("res_1", L=10, seed=2)
+    stacked_j = jatt.stack_weights(c["params"]["v"], c["params"]["k"], c["meta_j"])
+    basis, mask = c["basis"], jnp.asarray(c["mask"])
+    rng = np.random.default_rng(9)
+
+    def jfn(feat, h0, h1, qh, *st):
+        z = jatt.xla_reference(feat, basis, {0: h0, 1: h1}, mask, qh, tuple(st), c["meta_j"],
+                               dense=True)
+        return [z[d] for d, _ in c["meta_j"].f_value]
+
+    inputs = (c["feat"], c["h"][0], c["h"][1], c["qh"], *map(np.asarray, stacked_j))
+    out, vjp = jax.vjp(jax.jit(jfn), *inputs)
+    gz = [rng.normal(size=o.shape).astype(np.float32) for o in out]
+    want = vjp(gz)
+    leaves = [torch.from_numpy(np.array(a)).requires_grad_() for a in inputs]
+    tb = {k: _writable(v) for k, v in basis.items()}
+    z = tatt.gse3_attend(leaves[0], tb, {0: leaves[1], 1: leaves[2]}, _writable(c["mask"]),
+                         leaves[3], tuple(leaves[4:]), c["tmod"].meta)
+    outs = [z[d] for d, _ in c["tmod"].meta.f_value]
+    got = torch.autograd.grad(outs, leaves, [torch.from_numpy(g) for g in gz])
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=2e-5, rtol=2e-5)
+
+
+def _no_grad_case(name):
+    """(wrapper, its float inputs, its autograd.Function) at a small CPU shape."""
+    T = torch.from_numpy
+    if name == "tied_attention":
+        return ttied.tied_flash_attention, tuple(map(T, _qkv(2, 9, 16, 16))), \
+            ttied._TiedFlashAttention
+    if name == "fused_ff":
+        return (lambda *a: tff.fused_ln_ff_residual(*a, 1e-5)), tuple(map(T, _ff_args())), \
+            tff._FusedFF
+    if name == "conv3x3":
+        x, w, pre = _conv_args()
+        return (lambda x_, w_, *p: tconv.conv3x3_fused(x_, w_, p, 2)), \
+            tuple(map(T, (x, w, *pre))), tconv._Conv3x3
+    if name == "outer_product":
+        rng = np.random.default_rng(0)
+        x = rng.normal(size=(1, 3, 6, 4)).astype(np.float32)
+        opm = (x, x * 0.5, *_affine(rng, 16), (rng.normal(size=(16, 5)) / 4).astype(np.float32),
+               np.zeros(5, np.float32))
+        return topm.fused_outer_product_mean, tuple(map(T, opm)), topm._OuterProductMean
+    if name == "fused_performer":
+        x, ln, w, statics = _performer_args((2, 9))
+        return (lambda *a: tfp.fused_ln_performer_residual(*a, *statics, 1e-5)), \
+            tuple(map(T, (x, *ln, *w))), tfp._Performer
+    f_in_d, f_out_d, div, heads = SE3_LAYERS["res_1"]
+    tmod = tse3.GSE3Res(tse3.Fiber(f_in_d), tse3.Fiber(f_out_d), EDGE_DIM, div, heads,
+                        impl="pallas")
+    g = torch.Generator().manual_seed(0)
+    init_like_flax(tmod, g)
+    B, L = 1, 8
+    xyz = torch.randn(B, L, 3, 3, generator=g) * 5.0
+    mask = tknn.incoming_mask(tknn.knn_adjacency(xyz, torch.arange(L)[None], 4))
+    rel = xyz[:, :, None, 1] - xyz[:, None, :, 1]
+    basis = tso3.equivariant_basis(rel, 1)
+    feat = torch.cat([torch.randn(B, L, L, EDGE_DIM, generator=g), tso3.edge_radii(rel)], -1)
+    h = {d: torch.randn(B, L, m, 2 * d + 1, generator=g) for d, m in f_in_d.items()}
+    ck = sum((m // heads) * (2 * d + 1) for d, m in tmod.f_mid_in.dict.items())
+    qh = torch.randn(B, L, heads * ck, generator=g)
+    stacked = tatt.stack_weights(tmod.v, tmod.k, tmod.meta)
+    return (lambda f, q: tatt.gse3_attend(f, basis, h, mask, q, stacked, tmod.meta)), \
+        (feat, qh), tatt._GSE3Attend
+
+
+@pytest.mark.parametrize("name", ["tied_attention", "se3_attend", "fused_performer", "fused_ff",
+                                  "outer_product", "conv3x3"])
+def test_wrapper_without_grad_mode_bypasses_autograd(name, monkeypatch):
+    """Serving adds no autograd work: in grad mode a wrapper records its
+    autograd.Function; without grad mode it calls its forward directly and
+    returns the same values."""
+    fn, inputs, function = _no_grad_case(name)
+    want = fn(*(t.detach().requires_grad_() for t in inputs))
+    outs = lambda o: list(o.values()) if isinstance(o, dict) else [o]  # noqa: E731
+    assert all(type(t.grad_fn).__name__ == f"{function.__name__}Backward" for t in outs(want))
+
+    def refuse(*a, **k):
+        raise AssertionError(f"{function.__name__}.apply without grad mode")
+    monkeypatch.setattr(function, "apply", refuse)
+    with torch.inference_mode():
+        got = fn(*inputs)
+    for a, b in zip(outs(got), outs(want), strict=True):
+        assert torch.equal(a, b.detach())
+
+
+# ---- on the card: each backward kernel against its plain version
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 77, 96, 96), (2, 130, 512, 512)])
+def test_tied_backward_kernel_matches_plain_on_card(cuda, shape, dtype):
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(*shape))
+    out, lse = ttied.tied_attention_plain(q, k, v)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
+    before = ttied.bwd_launches
+    got = ttied.tied_attention_backward(q, k, v, out, lse, g)
+    want = ttied.tied_attention_bwd_plain(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert ttied.bwd_launches == before + 1
+    for a, b in zip(got, want):
+        _close_grad(a, b, 3e-5, 0.0, dtype)
+
+
+def _close_grad(out, ref, atol, rtol, dtype):
+    """A gradient computed in `dtype`: float32 at the JAX gradient
+    tolerances; bf16 as _close with the absolute term scaled by
+    max(1, max|ref|) (a gradient has no unit scale). The dtype of the
+    computation decides, not the output's: dgamma, dbeta and dbo are
+    float32 sums of bf16 terms."""
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=atol, rtol=rtol)
+    else:
+        scale = max(1.0, float(ref.float().abs().max()))
+        torch.testing.assert_close(out.float(), ref.float(), atol=BF16_ATOL * scale,
+                                   rtol=BF16_RTOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("axis1,lnres", [(True, False), (False, True)])
+def test_performer_backward_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres):
+    x, ln, w, statics = _performer_args((2, 70, 37), D=288, h=8, dh=64, m=320)
+    w = tuple(a / 2 for a in w[:4]) + w[4:]
+    tx = _card(x, cuda, dtype)
+    gy = torch.randn(tx.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype) * 0.1
+    tln = (_card(ln[0], cuda), _card(ln[1], cuda), 1e-5) if lnres else None
+    tw = [_card(a, cuda, dtype) for a in w[:4]]
+    proj = _card(w[5], cuda)
+    xin, gin = (tx, gy) if axis1 else (tx.reshape(-1, *tx.shape[2:]), gy.reshape(-1, *gy.shape[2:]))
+    axis = 1 if axis1 else 2
+    before = tfp.bwd_launches
+    got = tfp.performer_backward(xin, tln, *tw, proj, *statics, axis, gin)
+    want = tfp.performer_backward(xin, tln, *tw, proj, *statics, axis, gin,
+                                  core=tfp.attn_backward_plain)
+    torch.cuda.synchronize()
+    assert tfp.bwd_launches == before + 1
+    for a, b in zip(got, want):
+        if b is not None:
+            _close_grad(a, b, 2e-4, 1e-3, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dilation", [1, 8])
+def test_conv_input_grad_kernel_matches_plain_on_card(cuda, dtype, dilation):
+    x, w, _ = _conv_args(B=2, H=37, W=70, C=288, Co=288)
+    g, tw = _card(x, cuda, dtype), _card(w / 4, cuda, dtype)
+    before = tconv.bwd_launches
+    got = tconv.conv3x3_input_grad(g, tw, dilation)
+    want = tconv.conv3x3_plain(g, torch.flip(tw, (0, 1)).transpose(2, 3), None, dilation,
+                               torch.float32)
+    torch.cuda.synchronize()
+    assert tconv.bwd_launches == before + 1 and got.dtype == torch.float32
+    # float32 out from the same inputs and float32 sums on both sides, in
+    # either input dtype: the F tolerance, relative to the output's scale
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=2e-5)

@@ -38,14 +38,15 @@ A3M = os.path.join(REPO, "examples", "demo_casp.a3m")
 
 def test_port_imports_no_jax():
     """Every module of the port, and then chip_smoke.py (imported, not run),
-    import with neither jax nor any module of the JAX package in sys.modules."""
+    import with neither jax, flax, optax, orbax nor any module of the JAX
+    package in sys.modules."""
     code = textwrap.dedent("""
         import importlib, importlib.util, pkgutil, sys
         import rosettafold_tpu_torch as pkg
 
         def bad():
             return sorted(k for k in sys.modules if k == "jax"
-                          or k.startswith(("jax.", "flax"))
+                          or k.startswith(("jax.", "flax", "optax", "orbax"))
                           or k.split(".")[0] == "rosettafold_tpu")
 
         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
@@ -63,7 +64,8 @@ def test_port_imports_no_jax():
 
 def test_port_sources_import_no_jax_package():
     """No import statement of the port or of chip_smoke.py, at any depth
-    (function-local imports included), names jax, flax or rosettafold_tpu."""
+    (function-local imports included), names jax, flax, optax, orbax or
+    rosettafold_tpu."""
     import ast
     import glob
 
@@ -79,7 +81,8 @@ def test_port_sources_import_no_jax_package():
             else:
                 continue
             bad += [f"{path}: {n}" for n in names
-                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "rosettafold_tpu")]
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                              "rosettafold_tpu")]
     assert len(files) > 20 and not bad, bad
 
 
