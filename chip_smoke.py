@@ -11,12 +11,20 @@ Phases (any failure exits non-zero and prints no result line):
      source, all at once, sm_90a);
   3. kernel vs plain at the main path's shapes, TF32 off, float32 and
      bfloat16: tied attention (A) at L in {120, 128, 250} and every MSA depth
-     N the serving and training phases run (PATH_NS);
-     SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask;
+     N the serving and training phases run (PATH_NS), and in bfloat16 at the
+     long requests' (L, N) = (512, 64) and (1100, 32) (LONG_PATH);
+     SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask,
+     and on its gather layout (`src_idx` from `knn_bucket_indices` of a
+     random-walk backbone) at L=512 and L=1100 with S=272 (K_max 128) and
+     S=80 (K 32), and at a ragged L=77, S=48; generalized FAVOR+ linear attention (H),
+     float32 and bfloat16, at (P, L) = (8 * 512, 512), bench_kernels.py's
+     shape at L=512, and at a ragged (7, 77);
      the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
      + residual (C) over both axes, with and without LN/residual; fused LN +
      FF + residual (D); outer-product mean (E) at each N of PATH_NS; 3x3 conv (F)
-     at dilations 1/2/4/8 with and without the pre-op. Each shape logs
+     at dilations 1/2/4/8 with and without the pre-op; and C (LN + residual,
+     both axes), D, E (at the request's N) and F in bfloat16 at B=1, L=512
+     and L=1100, their plain versions in row slices of 128. Each shape logs
      max|d| against its bound, the kernel's and the plain version's CUDA-event
      ms, and the least time the card could take (`bound`);
   3b. the backward kernels against their plain backward versions, float32
@@ -31,9 +39,21 @@ Phases (any failure exits non-zero and prints no result line):
      forwards, then batched forwards at B=4, N=8, L=120 and L=128; every
      forward at L >= 128 must launch A/B/C/D/E/F 21/12/56/28/7/46 times, every
      one below 128 A/B 21/12 and no pair-track kernel;
+  4b. long chains: requests through `predict()` with the fast preset from a
+     synthetic A3M written at run time (examples/make_demo_a3m.py, L=1100):
+     crop 512 / n_seq 64 (bucketed SE(3), S=272 / 80) and the whole L=1100 /
+     n_seq 32 (also the head row-chunked by 512: chunks 512, 512, 76), timed
+     over 10 and 3 warm forwards; each forward must launch A/B-gather/C/D/E/F
+     21/12/56/28/7/46 times, dense B and H never; each request's bucket
+     overflow; a profile of one L=1100 forward; then H's own path, its
+     wrapper called as a caller would at the bench shape;
   5. end to end: requests with the same weights through attn_impl="pallas"
-     and "xla" at float32 (crop 96 and crop 128), held to the full-depth
-     envelope (logits max|d| <= 1e-2, xyz <= 0.4);
+     and "xla" at float32 (crop 96 and crop 128 of the demo A3M, crop 400 of
+     the synthetic one: bucketed SE(3)), held to the full-depth envelope
+     (logits max|d| <= 1e-2, xyz <= 0.4); per block, how far apart the CA
+     coordinates of the two paths' neighborhoods lie and how many edges
+     differ; on the bucketed crop, the plain path once more on the kernel
+     path's neighborhoods;
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
      busy share and the top device-time operators;
   7. training: train.loop.fit with bench_train.py's configuration (bf16,
@@ -60,6 +80,7 @@ import subprocess
 import sys
 import time
 import traceback
+from typing import NamedTuple
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 A3M = os.path.join(ROOT, "examples", "demo_casp.a3m")
@@ -69,35 +90,58 @@ TRAIN_SHAPES = ((1, 8, 128), (4, 16, 128))  # (B, n_seq, crop): bench_train's, t
 # every MSA depth the main path gives kernels A and E
 PATH_NS = tuple(sorted({n for _, n in REQUESTS} | {n for _, n, _ in BATCHES + TRAIN_SHAPES}))
 REPS = 10  # warm forwards timed per request and batch
-# name: (module of ops/cuda, its launch counter, CUDA source, TPU kernel it
-# replaces, launches per serving forward at L >= 128, launches per train step
-# at L = 128 with dropout and remat on: each forward kernel runs in the
-# forward and again in the recomputation of its remat'd block)
+LONG_A3M = (1100, 80, 1)  # (L, rows, seed) of the synthetic long-chain A3M
+LONG_REQUESTS = ((512, 64, 10), (1100, 32, 3))  # (crop, n_seq, warm forwards timed)
+# (L, n_seq) of each long request: phase 3 holds the kernels at these shapes
+LONG_PATH = tuple((c, n) for c, n, _ in LONG_REQUESTS)
+H_SHAPE = (8 * 512, 512)  # bench_kernels.py's FAVOR+ shape at L=512: P = L * 8 heads
+H_PATH_CALLS = 3
+
+
+class Kernel(NamedTuple):
+    module: str          # module of ops/cuda
+    counter: str         # its launch counter
+    source: str          # CUDA source in csrc/
+    replaces: str        # TPU kernel it replaces, under rosettafold_tpu/ops/pallas/
+    per_fwd: int         # launches per serving forward at 128 <= L <= 384
+    per_train_step: int  # per train step at L = 128 with dropout and remat on (each
+                         # forward kernel runs again in its remat'd block's recompute)
+    per_long_fwd: int    # per serving forward at L > 384 (bucketed SE(3): B gather)
+
+
 KERNELS = {
-    "tied_attention": ("tied_attention", "launches", "tied_attention.cu", "tied_attention.py:99",
-                       21, 42),
-    "se3_attend": ("se3_attend", "launches", "se3_attend.cu", "se3_attend.py:486", 12, 24),
-    "fused_performer": ("fused_performer", "launches", "fused_performer.cu",
-                        "fused_performer.py:398", 56, 112),
-    "fused_ff": ("fused_ff", "launches", "fused_ff.cu", "fused_ff.py:58", 28, 0),
-    "outer_product": ("outer_product", "launches", "outer_product.cu", "outer_product.py:88",
-                      7, 14),
-    "conv3x3": ("conv3x3", "launches", "conv3x3.cu", "conv3x3.py:134", 46, 92),
-    "tied_attention_bwd": ("tied_attention", "bwd_launches", "tied_attention_bwd.cu",
-                           "tied_attention.py:241", 0, 21),
-    "fused_performer_bwd": ("fused_performer", "bwd_launches", "fused_performer_bwd.cu",
-                            "fused_performer.py:601", 0, 56),
-    "conv3x3_bwd": ("conv3x3", "bwd_launches", "conv3x3.cu", "conv3x3.py:222", 0, 46),
+    "tied_attention": Kernel("tied_attention", "launches", "tied_attention.cu",
+                             "tied_attention.py:99", 21, 42, 21),
+    "se3_attend": Kernel("se3_attend", "launches", "se3_attend.cu", "se3_attend.py:486",
+                         12, 24, 0),
+    "se3_attend_gather": Kernel("se3_attend", "gather_launches", "se3_attend.cu",
+                                "se3_attend.py:486", 0, 0, 12),
+    "fused_performer": Kernel("fused_performer", "launches", "fused_performer.cu",
+                              "fused_performer.py:398", 56, 112, 56),
+    "fused_ff": Kernel("fused_ff", "launches", "fused_ff.cu", "fused_ff.py:58", 28, 0, 28),
+    "outer_product": Kernel("outer_product", "launches", "outer_product.cu",
+                            "outer_product.py:88", 7, 14, 7),
+    "conv3x3": Kernel("conv3x3", "launches", "conv3x3.cu", "conv3x3.py:134", 46, 92, 46),
+    "tied_attention_bwd": Kernel("tied_attention", "bwd_launches", "tied_attention_bwd.cu",
+                                 "tied_attention.py:241", 0, 21, 0),
+    "fused_performer_bwd": Kernel("fused_performer", "bwd_launches", "fused_performer_bwd.cu",
+                                  "fused_performer.py:601", 0, 56, 0),
+    "conv3x3_bwd": Kernel("conv3x3", "bwd_launches", "conv3x3.cu", "conv3x3.py:222", 0, 46, 0),
+    # on no model path: its path is its wrapper (phase 4b)
+    "linear_attention": Kernel("linear_attention", "launches", "linear_attention.cu",
+                               "linear_attention.py:82", 0, 0, 0),
 }
-SOURCES = sorted({src[:-3] for _, _, src, _, _, _ in KERNELS.values()})
+SOURCES = sorted({k.source[:-3] for k in KERNELS.values()})
 PAIR_KERNELS = ("fused_performer", "fused_ff", "outer_product", "conv3x3")
 # float32 tolerances (atol, rtol): those of the JAX kernel tests (A 2e-5, B
-# 2e-5, C 3e-5, D, E, F 2e-5) and of its gradient tests (G 3e-5,
+# 2e-5 on both layouts, C 3e-5, D, E, F 2e-5, H 3e-5 absolute,
+# tests/test_pallas.py:109) and of its gradient tests (G 3e-5,
 # tests/test_pallas.py:41,166; C' 2e-4 / 1e-3, :268,320; F's backward 2e-5,
 # tests/test_conv3x3.py:99). bfloat16: two bf16 ulps of the plain value
 # (2^-6 relative) + 1e-2: both sides round the same intermediates, in other
 # summation orders.
 F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
+           "se3_attend_gather": (2e-5, 2e-5), "linear_attention": (3e-5, 0.0),
            "fused_performer": (3e-5, 3e-5), "fused_ff": (2e-5, 2e-5),
            "outer_product": (2e-5, 2e-5), "conv3x3": (2e-5, 2e-5),
            "tied_attention_bwd": (3e-5, 0.0), "fused_performer_bwd": (2e-4, 1e-3),
@@ -120,11 +164,12 @@ def require(ok, what):
         raise AssertionError(what)
 
 
-def cuda_time(fn, iters=10, warmup=2):
-    """Mean milliseconds per call, CUDA events around `iters` calls."""
+def cuda_time(fn, iters=10):
+    """Mean milliseconds per call, CUDA events around `iters` calls after
+    min(2, iters) warm-up calls."""
     import torch
 
-    for _ in range(warmup):
+    for _ in range(min(2, iters)):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -273,6 +318,11 @@ def phase_tied(res):
                 res.case("tied_attention", f"B*H={BH} L={L} N={N}", ta.tied_attention_forward,
                          ta.tied_attention_plain, args, dname, main=main, library=lib,
                          iters=10 if main else 3)
+    for L, N in LONG_PATH:  # the long requests: B=1, bf16 as served
+        q, k = (_normal((12, L, N * 32), 0.3, g, torch.bfloat16) for _ in range(2))
+        v = _normal((12, L, N * 32), 1.0, g, torch.bfloat16)
+        res.case("tied_attention", f"B*H=12 L={L} N={N}", ta.tied_attention_forward,
+                 ta.tied_attention_plain, (q, k, v), "bfloat16", iters=3)
 
 
 def phase_se3(res):
@@ -312,6 +362,76 @@ def phase_se3(res):
                      args, "float32", main=name == "res_1", work_share=share)
 
 
+def phase_se3_gather(res):
+    """B on its gather layout at the three GSE3Res layer shapes: bucket
+    src_idx of a random-walk backbone at each long request's L (512, 1100)
+    with the three-track blocks' K_max = 128 (S = 272) and the final block's
+    K = 32 (S = 80), and at a ragged L=77, K=16 (S = 48)."""
+    import numpy as np
+    import torch
+
+    from rosettafold_tpu_torch.models.rosettafold import init_like_flax
+    from rosettafold_tpu_torch.models.se3 import SE3Transformer
+    from rosettafold_tpu_torch.ops import knn, so3
+    from rosettafold_tpu_torch.ops.cuda import se3_attend as sa
+
+    dev = "cuda"
+    g = torch.Generator(device="cpu").manual_seed(4)
+    se3 = SE3Transformer(num_layers=2, num_channels=16, n_heads=4, num_degrees=2,
+                         l0_in_features=64, l1_in_features=3, l0_out_features=32,
+                         l1_out_features=3, num_edge_features=64, impl="pallas")
+    init_like_flax(se3, g)
+    se3 = se3.to(dev)
+    shapes = [(L, K) for L, _ in LONG_PATH for K in (128, 32)] + [(77, 16)]
+    for L, K in shapes:
+        xyz = torch.from_numpy(_backbone(L, np.random.default_rng(L + K))).float()[None].to(dev)
+        src, mask, overflow = knn.knn_bucket_indices(xyz, torch.arange(L, device=dev)[None], K)
+        S = src.shape[-1]
+        share = float(mask.float().mean())  # the kernel skips masked slots
+        log(f"bucket L={L} K={K}: S={S}, {share:.3f} of the slots hold edges,"
+            f" overflow {int(overflow.sum())}")
+        ca = xyz[:, :, 1]
+        rel = ca[:, :, None, :] - ca[0][src.long()]
+        basis = {k: v.contiguous() for k, v in so3.equivariant_basis(rel, 1).items()}
+        feat = torch.cat([torch.randn(1, L, S, 64, generator=g).to(dev),
+                          so3.edge_radii(rel)], dim=-1).contiguous()
+        for name in ("res_0", "res_1", "res_out"):
+            mod = getattr(se3, name)
+            h = {d: torch.randn(1, L, m, 2 * d + 1, generator=g).to(dev)
+                 for d, m in mod.f_in.dict.items()}
+            ck = sum((m // mod.n_heads) * (2 * d + 1) for d, m in mod.f_mid_in.dict.items())
+            qh = torch.randn(1, L, mod.n_heads * ck, generator=g).to(dev)
+            main = (name, L, S) == ("res_1", 512, 272)
+            with torch.no_grad():
+                args = (feat, basis, h, mask, qh, sa.stack_weights(mod.v, mod.k, mod.meta),
+                        mod.meta, src)
+                res.case("se3_attend_gather", f"{name} L={L} S={S}", sa.gse3_attend,
+                         sa.se3_attend_plain, args, "float32", main=main, work_share=share,
+                         iters=10 if main else 3)
+
+
+def phase_linear_attention(res):
+    """H at bench_kernels.py's shape at L=512 (q, k at 0.1 std, the seed-0
+    projection cast to the dtype) and at a ragged (7, 77)."""
+    import torch
+
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import linear_attention as la
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 0)).float().cuda()
+    for P, L in (H_SHAPE, (7, 77)):
+        q, k = (_normal((P, L, 64), 0.1, g) for _ in range(2))
+        v = _normal((P, L, 64), 1.0, g)
+        for dname in ("float32", "bfloat16"):
+            main = ((P, L), dname) == (H_SHAPE, "bfloat16")
+            args = tuple(t.to(_dt(dname)) for t in (q, k, v, proj))
+            res.case("linear_attention", f"P={P} L={L}", la.generalized_linear_attention,
+                     la.linear_attention_plain, args, dname, main=main,
+                     iters=10 if main else 3)
+        del q, k, v
+
+
 def _normal(shape, std, g, dtype=None):
     import torch
 
@@ -319,8 +439,30 @@ def _normal(shape, std, g, dtype=None):
     return t if dtype is None else t.to(dtype)
 
 
+def _in_rows(plain, rows, dim, out_dim=None):
+    """`plain` over slices of its first argument along `dim`, `rows` at a
+    time, the outputs joined along `out_dim` (default `dim`): the same
+    function in bounded memory, for the long shapes whose float32
+    intermediates would not fit whole. `rows` None: `plain` itself."""
+    import torch
+
+    if rows is None:
+        return plain
+    out_dim = dim if out_dim is None else out_dim
+
+    def run(x, *rest):
+        n = x.shape[dim]
+        return torch.cat([plain(x.narrow(dim, lo, min(rows, n - lo)), *rest)
+                          for lo in range(0, n, rows)], out_dim)
+    return run
+
+
 def phase_pair_kernels(res):
-    """C, D, E, F at the serving shapes: (B, L) = (4, 128) and (1, 250)."""
+    """C, D, E, F at the serving shapes, (B, L) = (4, 128) and (1, 250) in
+    float32 and bfloat16 at every N of PATH_NS, and at the long requests'
+    (1, 512) and (1, 1100) in bfloat16 as served, C in its LN + residual
+    form, E at the request's N; there the plain versions run in row slices
+    of 128 (`_in_rows`)."""
     import torch
     import torch.nn.functional as F
 
@@ -333,11 +475,15 @@ def phase_pair_kernels(res):
     g = torch.Generator(device="cuda").manual_seed(2)
     D, HD, FF = 288, 512, 1152
     proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
-    for B, L in ((4, 128), (1, 250)):
+    both = ("float32", "bfloat16")
+    shapes = [(4, 128, both, PATH_NS, None), (1, 250, both, PATH_NS, None)]
+    shapes += [(1, L, ("bfloat16",), (N,), 128) for L, N in LONG_PATH]
+    for B, L, dnames, Ns, rows in shapes:
         x32 = _normal((B, L, L, D), 1.0, g)
         gam = 1.0 + _normal((D,), 0.1, g)
         bet = _normal((D,), 0.1, g)
-        for dname in ("float32", "bfloat16"):
+        iters = 3 if rows is None else 1
+        for dname in dnames:
             dt = _dt(dname)
             x = x32.to(dt)
             main = (B, L, dname) == (4, 128, "bfloat16")
@@ -347,7 +493,7 @@ def phase_pair_kernels(res):
             w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
             statics = (64 ** -0.25, 1e-3, 8, 64)
             for axis in (1, 2):
-                for lnres in (True, False):
+                for lnres in (True, False) if rows is None else (True,):
                     xin = x if axis == 1 else x.reshape(B * L, L, D)
                     if lnres:
                         fn = (fp.fused_ln_performer_residual_axis1 if axis == 1
@@ -363,23 +509,27 @@ def phase_pair_kernels(res):
 
                         def plain(x_, *rest, ax=axis):
                             return fp.performer_plain(x_, None, *rest, ax)
+                    # problems: columns of the 4D x (axis 1), rows of the 3D one
                     res.case("fused_performer",
                              f"{shape} axis {axis} {'LN+residual' if lnres else 'no LN'}",
-                             fn, plain, args, dname, main=main and axis == 1 and lnres)
+                             fn, _in_rows(plain, rows, 2 if axis == 1 else 0), args, dname,
+                             main=main and axis == 1 and lnres,
+                             iters=10 if main and axis == 1 and lnres else iters)
             # D
             args = (x, gam, bet, _normal((D, FF), D ** -0.5, g, dt), _normal((FF,), 0.1, g),
                     _normal((FF, D), FF ** -0.5, g, dt), _normal((D,), 0.1, g), 1e-5)
-            res.case("fused_ff", shape, ff.fused_ln_ff_residual, ff.fused_ff_plain, args, dname,
-                     main=main)
+            res.case("fused_ff", shape, ff.fused_ln_ff_residual,
+                     _in_rows(ff.fused_ff_plain, rows, 1), args, dname, main=main,
+                     iters=10 if main else iters)
             # E
-            for N in PATH_NS:
+            for N in Ns:
                 xo = _normal((B, N, L, 32), 1.0, g)
                 yo = (xo * torch.rand(B, N, L, 1, generator=g, device="cuda")).to(dt)
                 args = (xo, yo, 1.0 + _normal((1024,), 0.1, g), _normal((1024,), 0.1, g),
                         _normal((1024, D), 1 / 32, g, dt), _normal((D,), 0.1, g), 1e-5, dt)
                 res.case("outer_product", f"{shape} N={N}", op.fused_outer_product_mean,
-                         op.outer_product_plain, args, dname, main=main and N == 8,
-                         iters=10 if main and N == 8 else 3)
+                         _in_rows(op.outer_product_plain, rows, 2, 1), args, dname,
+                         main=main and N == 8, iters=10 if main and N == 8 else iters)
             # F
             wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
             pre = (1.0 + _normal((B, D), 0.1, g), _normal((B, D), 0.1, g))
@@ -395,7 +545,7 @@ def phase_pair_kernels(res):
                         lib = lambda: F.conv2d(xn, wn, padding=1)  # noqa: E731
                     res.case("conv3x3", f"{shape} dilation {dil}{' pre-op' if with_pre else ''}",
                              cv.conv3x3_fused, cv.conv3x3_plain, args, dname, main=is_main,
-                             library=lib)
+                             library=lib, iters=10 if is_main else iters)
             del x
 
 
@@ -502,16 +652,16 @@ def _check_outputs(logits, xyz, plddt, B, L):
 def _module(name):
     import importlib
 
-    return importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{KERNELS[name][0]}")
+    return importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{KERNELS[name].module}")
 
 
 def read_counts():
-    return {n: getattr(_module(n), KERNELS[n][1]) for n in KERNELS}
+    return {n: getattr(_module(n), KERNELS[n].counter) for n in KERNELS}
 
 
 def zero_counts():
     for n in KERNELS:
-        setattr(_module(n), KERNELS[n][1], 0)
+        setattr(_module(n), KERNELS[n].counter, 0)
 
 
 def _timed_forwards(model, args, n):
@@ -551,9 +701,9 @@ def phase_serving():
     expected = dict.fromkeys(KERNELS, 0)
 
     def add(L, n):
-        for name, (_, _, _, _, per_fwd, _) in KERNELS.items():
+        for name, spec in KERNELS.items():
             if L >= 128 or name not in PAIR_KERNELS:
-                expected[name] += per_fwd * n
+                expected[name] += spec.per_fwd * n
 
     def check(what):
         counts = read_counts()
@@ -591,26 +741,172 @@ def phase_serving():
     return counts, model
 
 
-def phase_e2e():
+def write_long_a3m(tmp):
+    """The synthetic long-chain A3M (examples/make_demo_a3m.py's generator)."""
+    from examples.make_demo_a3m import make
+
+    path = os.path.join(tmp, "long.a3m")
+    L, rows, seed = LONG_A3M
+    make(path, L=L, n_seq=rows, seed=seed)
+    return path
+
+
+def _overflows(model):
+    """The bucket overflow of each three-track block and the final block."""
+    blocks = [getattr(model, f"three_track_{i}") for i in range(model.n_tt)] + [model.final_block]
+    return [int(b.coord_update_with_msa_and_pair.bucket_overflow.sum()) for b in blocks]
+
+
+def phase_long_serving(a3m):
+    """4b: long-chain requests through predict() with the fast preset, then
+    H's path (its wrapper)."""
+    import torch
+
+    from rosettafold_tpu_torch import predict as P
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import linear_attention as la
+
+    model = P.build_model(P.fast_config(max(c for c, _, _ in LONG_REQUESTS)), device="cuda",
+                          seed=0)
+    expected = dict.fromkeys(KERNELS, 0)
+    zero_counts()  # count only the main path from here
+    for crop, n_seq, reps in LONG_REQUESTS:
+        logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
+            a3m, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
+            model=model)
+        L = msa.shape[-1]
+        require(P.fast_config(L).se3_impl == "bucket", f"L={L} is not on the bucket path")
+        _check_outputs(logits, xyz, plddt, 1, L)
+        overflow = _overflows(model)
+        args = [torch.as_tensor(a, device="cuda") for a in (msa, seq, aa)]
+        _, times = _timed_forwards(model, args, reps)
+        for name, spec in KERNELS.items():
+            expected[name] += spec.per_long_fwd * (2 + reps)
+        counts = read_counts()
+        require(counts == expected, f"launches {counts} != {expected} after request L={L}")
+        med = statistics.median(times)
+        log(f"long request crop={crop} L={L} n_seq={msa.shape[1]} (head chunk"
+            f" {model.config.head_chunk if L > (model.config.head_chunk or L) else None}):"
+            f" warm forward {fwd_s * 1e3:.2f} ms; {reps} more: median {med:.2f} ms,"
+            f" min {min(times):.2f}, max {max(times):.2f}; bucket overflow per block"
+            f" {overflow} (three-track blocks, final)")
+    long_counts = read_counts()
+    log("long-chain path launches: " + ", ".join(f"{n} {c}" for n, c in long_counts.items()))
+    profile_report(f"L={L} forward", lambda: _timed_forwards(model, args, 1))
+    del model, logits, xyz, plddt
+    torch.cuda.empty_cache()
+
+    # H: on no model path; its path is the wrapper, called as a caller would
+    g = torch.Generator(device="cuda").manual_seed(6)
+    P_, L_ = H_SHAPE
+    q, k = (_normal((P_, L_, 64), 0.1, g, torch.bfloat16) for _ in range(2))
+    v = _normal((P_, L_, 64), 1.0, g, torch.bfloat16)
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 0)).cuda().bfloat16()
+    zero_counts()
+    with torch.inference_mode():
+        for _ in range(H_PATH_CALLS):
+            out = la.generalized_linear_attention(q, k, v, proj)
+    torch.cuda.synchronize()
+    require(out.shape == q.shape and out.dtype == q.dtype and bool(torch.isfinite(out).all()),
+            "H's output")
+    h_counts = read_counts()
+    want = {n: H_PATH_CALLS if n == "linear_attention" else 0 for n in KERNELS}
+    require(h_counts == want, f"H path launches {h_counts} != {want}")
+    log(f"H path: {H_PATH_CALLS} calls of generalized_linear_attention at P={P_} L={L_} bf16")
+    return {n: long_counts[n] + h_counts[n] for n in KERNELS}
+
+
+class NeighborLog:
+    """Stands in for `ops.knn.<name>` (knn_adjacency on the dense layout,
+    knn_bucket_indices on the bucket) while active: records each call's CA
+    coordinates and output in call order (one call per block), or, given
+    `replay`, returns the outputs that log recorded, in the same order."""
+
+    def __init__(self, name, replay=None):
+        self.name, self.calls, self.replay = name, [], replay
+
+    def __enter__(self):
+        from rosettafold_tpu_torch.ops import knn
+
+        self.knn, self.real = knn, getattr(knn, self.name)
+        setattr(knn, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.knn, self.name, self.real)
+
+    def __call__(self, xyz, *args, **kw):
+        out = (self.replay.calls[len(self.calls)][1] if self.replay is not None
+               else self.real(xyz, *args, **kw))
+        self.calls.append((xyz[:, :, 1].clone(), out))
+        return out
+
+
+def _edges(out):
+    """(edges (B, L, L) bool, overflow or None) of a recorded output: the
+    dense adjacency itself, or the edges a bucket holds (source i into
+    destination j) and its overflow."""
+    import torch
+
+    if isinstance(out, torch.Tensor):
+        return out, None
+    src_idx, valid, overflow = out
+    B, L, _ = src_idx.shape  # empty slots write to a column past the last
+    dense = torch.zeros(B, L, L + 1, dtype=torch.bool, device=src_idx.device)
+    dense.scatter_(2, torch.where(valid, src_idx.long(), L), valid)
+    return dense[..., :L], int(overflow.sum())
+
+
+def _neighbor_diff(tag, a, b):
+    """Per block: how far apart the CA coordinates the two runs' neighborhoods
+    were built from lie, and how many edges one run holds that the other
+    does not."""
+    for i, ((ca_a, out_a), (ca_b, out_b)) in enumerate(zip(a.calls, b.calls)):
+        (e_a, ov_a), (e_b, ov_b) = _edges(out_a), _edges(out_b)
+        log(f"  {tag} block {i}: CA in max|d| {float((ca_a - ca_b).abs().max()):.3e}"
+            f" (max|CA| {float(ca_a.abs().max()):.1f}), edges in one run and not the other"
+            f" {int((e_a != e_b).sum())} of {int(e_a.sum())}"
+            + ("" if ov_a is None else f", overflow {ov_a} / {ov_b}"))
+
+
+def phase_e2e(long_a3m):
+    """5: the float32 full-depth envelope of the kernel path against the plain
+    path, with each block's neighborhoods compared between the two paths. On
+    the bucketed crop the plain path runs once more on the kernel path's
+    neighborhoods, to show what a change of edge set adds to xyz."""
     import dataclasses
 
     from rosettafold_tpu_torch import predict as P
 
-    for crop, n_seq in ((96, 32), (128, 32)):
+    for a3m, crop, n_seq in ((A3M, 96, 32), (A3M, 128, 32), (long_a3m, 400, 32)):
         base = dataclasses.replace(P.fast_config(crop), compute_dtype="float32")
-        out = {}
-        for impl in ("pallas", "xla"):
-            model = P.build_model(dataclasses.replace(base, attn_impl=impl), device="cuda",
-                                  seed=0)
-            logits, xyz, _, _, _ = P.predict(A3M, n_seq=n_seq, crop=crop, device="cuda",
-                                             model=model)
-            out[impl] = (logits, xyz)
+        bucket = base.se3_impl == "bucket"
+        knn_fn = "knn_bucket_indices" if bucket else "knn_adjacency"
+        out, logs = {}, {}
+        for run in ("pallas", "xla") + (("xla pinned",) if bucket else ()):
+            model = P.build_model(dataclasses.replace(base, attn_impl=run.split()[0]),
+                                  device="cuda", seed=0)
+            with NeighborLog(knn_fn, logs["pallas"] if run == "xla pinned" else None) as rec:
+                logits, xyz, _, _, _ = P.predict(a3m, n_seq=n_seq, crop=crop, device="cuda",
+                                                 model=model)
+            out[run], logs[run] = (logits, xyz), rec
             del model
-        d_logits = max(float((out["pallas"][0][k] - out["xla"][0][k]).abs().max())
-                       for k in out["xla"][0])
-        d_xyz = float((out["pallas"][1] - out["xla"][1]).abs().max())
-        log(f"end to end f32 kernels vs plain (crop {crop}, n_seq {n_seq}): logits max|d|"
-            f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ})")
+
+        def gap(run):
+            d_logits = max(float((out["pallas"][0][k] - out[run][0][k]).abs().max())
+                           for k in out[run][0])
+            return d_logits, float((out["pallas"][1] - out[run][1]).abs().max())
+        d_logits, d_xyz = gap("xla")
+        log(f"end to end f32 kernels vs plain (crop {crop}, n_seq {n_seq}, SE(3)"
+            f" {base.se3_impl}): logits max|d|"
+            f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ});"
+            f" max|xyz| {float(out['xla'][1].abs().max()):.1f}")
+        _neighbor_diff("kernels vs plain", logs["pallas"], logs["xla"])
+        if bucket:
+            p_logits, p_xyz = gap("xla pinned")
+            log(f"  plain path on the kernel path's neighborhoods: logits max|d|"
+                f" {p_logits:.3e}, xyz max|d| {p_xyz:.3e}")
+            _neighbor_diff("kernels vs plain pinned", logs["pallas"], logs["xla pinned"])
         require(d_logits <= E2E_LOGITS and d_xyz <= E2E_XYZ,
                 f"kernel path leaves the full-depth envelope at crop {crop}")
 
@@ -744,7 +1040,7 @@ def phase_training(pairs):
                     moment_dtype="bfloat16", log_fn=log_step, device="cuda")
         got = read_counts()
         steps = TRAIN_WARM + TRAIN_TIMED
-        want = {n: KERNELS[n][5] * steps for n in KERNELS}
+        want = {n: KERNELS[n].per_train_step * steps for n in KERNELS}
         require(got == want, f"train launches {got} != {want} at B={B} N={N} L={crop}")
         for n in KERNELS:
             counts[n] += got[n]
@@ -843,6 +1139,8 @@ def main() -> int:
         phase_build()
         phase_tied(res)
         phase_se3(res)
+        phase_se3_gather(res)
+        phase_linear_attention(res)
         phase_pair_kernels(res)
         phase_backward_kernels(res)
         log(f"phases 1-3b: {time.perf_counter() - t0:.1f} s")
@@ -850,21 +1148,24 @@ def main() -> int:
         log(f"phases 1-4: {time.perf_counter() - t0:.1f} s")
         phase_profile(model)
         del model
-        phase_e2e()
-        log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
         with tempfile.TemporaryDirectory() as tmp:
+            long_a3m = write_long_a3m(tmp)
+            long = phase_long_serving(long_a3m)
+            log(f"phases 1-4b: {time.perf_counter() - t0:.1f} s")
+            phase_e2e(long_a3m)
+            log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
             training = phase_training(_train_pairs(tmp))
         log(f"all phases: {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
         return 1
     kernels = [{"name": name, "route": "cuda",
-                "source": f"rosettafold_tpu_torch/csrc/{src}",
-                "replaces": f"rosettafold_tpu/ops/pallas/{tpu}",
-                "launches": serving[name] + training[name],
-                "launches_serving": serving[name], "launches_training": training[name],
-                **res.kernels[name]}
-               for name, (_, _, src, tpu, _, _) in KERNELS.items()]
+                "source": f"rosettafold_tpu_torch/csrc/{spec.source}",
+                "replaces": f"rosettafold_tpu/ops/pallas/{spec.replaces}",
+                "launches": serving[name] + long[name] + training[name],
+                "launches_serving": serving[name], "launches_long": long[name],
+                "launches_training": training[name], **res.kernels[name]}
+               for name, spec in KERNELS.items()]
     missing = [k["name"] for k in kernels if k["launches"] == 0 or "ms" not in k]
     if missing:
         print(f"chip_smoke.py: kernels without launches or times: {missing}", file=sys.stderr)

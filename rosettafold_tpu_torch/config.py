@@ -46,12 +46,13 @@ class RoseTTAFoldConfig:
 
     # "xla": plain ops. "pallas": the hand-written kernels.
     attn_impl: str = "xla"
-    # SE(3) layout: "dense" (ported), "scatter", "bucket", "gather" (not yet)
+    # SE(3) layout: "dense", "bucket", "gather" (ported), "scatter" (not yet)
     se3_impl: str = "dense"
     se3_bucket_capacity: Optional[int] = None
     # True: always exclude self edges from the kNN graph
     knn_exclude_self: bool = True
-    # row-chunked long-sequence paths (not ported yet)
+    # row-chunked long-sequence paths: head_chunk (every pair ResNet, ported),
+    # long_chunk (attention and outer product, not yet)
     long_chunk: Optional[int] = None
     head_chunk: Optional[int] = None
     # training / multi-device knobs (not ported yet)

@@ -1,9 +1,10 @@
 // One GSE3Res layer's V/K partial convolutions plus its equivariant
-// attention, dense layout: a kernel for Hopper (sm_90a).
+// attention, dense and gather layouts: a kernel for Hopper (sm_90a).
 //
 // Replaces rosettafold_tpu/ops/pallas/se3_attend.py `_forward_planes`
 // (the pl.pallas_call at :486, public entries `gse3_attend_planes` :607 and
-// `gse3_attend` :721). Same math as that file's `xla_reference` (:509).
+// `gse3_attend` :721), with `dense=True` and, fed by `gather_h_planes` (:405),
+// `dense=False`. Same math as that file's `xla_reference` (:509).
 //
 // Per edge (dst j, src s) and per degree pair p = (branch, d_in, d_out):
 //   R    = fc3(relu(LN(fc2(relu(LN(fc1(feat)))))))   radial MLP, 32 wide
@@ -17,6 +18,10 @@
 //   feat (B, J, S, ed); basis '{di},{do}' (B, J, S, 2do+1, 2di+1, nf);
 //   h0 (B, L, m0, 1), h1 (B, L, m1, 3); mask (B, J, S) uint8;
 //   qh (B, J, H*ck); out (B, J, F) with columns (degree, channel, m).
+// Source slot s of destination j is node s (dense layout, S == L) or, when
+// src_idx (B, J, S) int32 is given (gather layout, any L), node
+// src_idx[b, j, s], read from h in place. A masked slot's index is never
+// read: the bucket layout leaves arbitrary indices in its empty slots.
 // Weights are `stack_weights`' operands: w1 (ed, 32P) (its w1t transposed),
 // misc (32P, 6), w2t (32P, 32), and fc3 rows permuted to (o, f, c) order,
 // 8-row padded per pair: w3t (NW3, 32), w3b (NW3).
@@ -109,7 +114,8 @@ se3_attend_kernel(const float* __restrict__ feat, const float* __restrict__ b00,
                   const float* __restrict__ qh, const float* __restrict__ w1,
                   const float* __restrict__ misc, const float* __restrict__ w2t,
                   const float* __restrict__ w3t, const float* __restrict__ w3b,
-                  float* __restrict__ out, int J, int S, int L, Meta meta) {
+                  const int* __restrict__ src_idx, float* __restrict__ out, int J, int S,
+                  int L, Meta meta) {
   extern __shared__ float sm[];
   const int H = meta.H;
   const int nvp = meta.nv | 1;              // odd row stride: no bank conflicts
@@ -137,6 +143,7 @@ se3_attend_kernel(const float* __restrict__ feat, const float* __restrict__ b00,
     }
     for (int i = 0; i < meta.nk; ++i) kS[i * NT + tid] = 0.f;
     const float* fe = feat + e * meta.ed;
+    const int src = src_idx ? src_idx[e] : s;  // the source node of this edge
 
     for (int pi = 0; pi < meta.npairs; ++pi) {
       const PairDesc p = meta.p[pi];
@@ -177,8 +184,8 @@ se3_attend_kernel(const float* __restrict__ feat, const float* __restrict__ b00,
           for (int f = 0; f < 3; ++f)
             bk[m][n][f] = (m < no && n < ni && f < nf) ? bp[(m * ni + n) * nf + f] : 0.f;
 
-      const float* hs = (p.di == 0) ? h0 + ((size_t)b * L + s) * p.mi
-                                    : h1 + ((size_t)b * L + s) * p.mi * 3;
+      const float* hs = (p.di == 0) ? h0 + ((size_t)b * L + src) * p.mi
+                                    : h1 + ((size_t)b * L + src) * p.mi * 3;
       for (int o = 0; o < p.mo; ++o) {
         float acc[3] = {0.f, 0.f, 0.f};
 #pragma unroll
@@ -263,13 +270,13 @@ size_t se3_attend_smem_bytes(int S, int nv, int nk, int H, int ck) {
   return sizeof(float) * ((size_t)S * ((nv | 1) + H) + (size_t)nk * NT + (size_t)H * ck);
 }
 
-// Returns the cudaError_t of the launch.
+// src_idx null: the dense layout (S == L). Returns the cudaError_t of the launch.
 int se3_attend_fwd(const float* feat, const float* b00, const float* b01,
                    const float* b10, const float* b11, const float* h0,
                    const float* h1, const uint8_t* mask, const float* qh,
                    const float* w1, const float* misc, const float* w2t,
-                   const float* w3t, const float* w3b, float* out, int B, int J,
-                   int S, int L, const Meta* meta, void* stream) {
+                   const float* w3t, const float* w3b, const int* src_idx, float* out,
+                   int B, int J, int S, int L, const Meta* meta, void* stream) {
   if (meta->npairs > MAX_PAIRS || meta->H < 1) return (int)cudaErrorInvalidValue;
   const size_t smem = se3_attend_smem_bytes(S, meta->nv, meta->nk, meta->H, meta->ck);
   cudaError_t err = cudaFuncSetAttribute(
@@ -277,8 +284,8 @@ int se3_attend_fwd(const float* feat, const float* b00, const float* b01,
   if (err != cudaSuccess) return (int)err;
   dim3 grid(J, B);
   se3_attend_kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      feat, b00, b01, b10, b11, h0, h1, mask, qh, w1, misc, w2t, w3t, w3b, out, J, S,
-      L, *meta);
+      feat, b00, b01, b10, b11, h0, h1, mask, qh, w1, misc, w2t, w3t, w3b, src_idx, out,
+      J, S, L, *meta);
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,14 @@
-"""Pair-track modules (port of rosettafold_tpu/models/pair.py, unchunked).
+"""Pair-track modules (port of rosettafold_tpu/models/pair.py).
 
 With attn_impl="pallas" the JAX package runs the fused outer-product (E),
 3x3 conv (F), FAVOR+ (C) and FF (D) kernels from L >= 128, and so does this
 port, through the CUDA kernels of ops/cuda/. Each module's crossover field
 (`fused_min_l`, `conv_fused_min_l`, `fused_favor_min_l`, `ff_fused_min_l`,
 default 128 as in JAX) moves that point; below it both run plain math.
+`row_chunk` (the conv block) and `ff_chunk` (the plain FF step) are the
+long-L inference modes of JAX's `conv_chunk`: the same results over row
+chunks (models/resnet.py). The row-chunked attention and outer product
+(`long_chunk`) are not ported.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from ..ops.cuda.outer_product import fused_outer_product_mean
 from .attention import FeedForward, PerformerSelfAttention
 from .layers import FUSED_MIN_L, ConvNHWC, Dense, LayerNorm
 from .msa import PositionWiseWeightFactor
-from .resnet import InstanceNorm2d, conv_block_kernels
+from .resnet import InstanceNorm2d, chunks, conv_block_kernels, conv_block_rows
 
 LN_EPS = 1e-5
 
@@ -62,9 +66,10 @@ class PairUpdateWithMsa(nn.Module):
 
     def __init__(self, d_msa: int, d_proj: int = 32, d_pair: int = 288, n_heads: int = 12,
                  p_dropout: float = 0.1, attn_impl: str = "xla",
-                 conv_fused_min_l: int = FUSED_MIN_L, dtype=None):
+                 conv_fused_min_l: int = FUSED_MIN_L, dtype=None, row_chunk=None):
         super().__init__()
         self.d_pair, self.attn_impl, self.dtype = d_pair, attn_impl, dtype
+        self.row_chunk = row_chunk
         self.conv_fused_min_l = conv_fused_min_l
         self.proj_msa_ln_in = LayerNorm(d_msa, LN_EPS)
         self.proj_msa = Dense(d_msa, d_proj)
@@ -96,15 +101,29 @@ class PairUpdateWithMsa(nn.Module):
         w_att = kern[2 * dp + 2 * d2p:]
         row_proj = msa_1d.to(ct) @ w_row
         col_proj = msa_1d.to(ct) @ w_col
-        x = (self.ln_coevol_feat(coevol).to(ct) @ w_coevol
-             + self.ln_pair(pair).to(ct) @ w_pair
-             + att.to(ct) @ w_att
-             + row_proj[:, :, None, :]
-             + col_proj[:, None, :, :]
-             + self.resnet_in.bias.to(ct))
 
-        if self.attn_impl == "pallas" and L >= self.conv_fused_min_l:
-            return conv_block_kernels(self, x, 1)
+        def x_rows(lo, hi):
+            """Rows [lo, hi) of the decomposed resnet_in output."""
+            return (self.ln_coevol_feat(coevol[:, lo:hi]).to(ct) @ w_coevol
+                    + self.ln_pair(pair[:, lo:hi]).to(ct) @ w_pair
+                    + att[:, lo:hi].to(ct) @ w_att
+                    + row_proj[:, lo:hi, None, :]
+                    + col_proj[:, None, :, :]
+                    + self.resnet_in.bias.to(ct))
+
+        kernels = self.attn_impl == "pallas" and L >= self.conv_fused_min_l
+        ranges = chunks(L, self.row_chunk)
+        if len(ranges) > 1 and (kernels or not self.training):
+            # built chunk by chunk: the float32 LN temporaries stay O(chunk)
+            x = torch.empty((pair.shape[0], L, L, self.d_pair), dtype=ct, device=pair.device)
+            for lo, hi in ranges:
+                x[:, lo:hi] = x_rows(lo, hi)
+            if not kernels:
+                return conv_block_rows(self, x, 1, self.row_chunk)
+        else:
+            x = x_rows(0, L)
+        if kernels:
+            return conv_block_kernels(self, x, 1, self.row_chunk)
         y = F.elu(self.in1(self.conv1(x)))
         y = self.in2(self.conv2(self.dropout(y)))
         out = F.elu(x.float() + y)
@@ -122,9 +141,9 @@ class PairUpdateWithAxialAttentionLayer(nn.Module):
     def __init__(self, d_pair: int, d_ff: int, n_heads: int = 8, p_dropout: float = 0.1,
                  feature_seed: int = 42, performer_dim_head: int = 64,
                  attn_impl: str = "xla", fused_favor_min_l=None,
-                 ff_fused_min_l: int = FUSED_MIN_L, dtype=None):
+                 ff_fused_min_l: int = FUSED_MIN_L, dtype=None, ff_chunk=None):
         super().__init__()
-        self.attn_impl, self.dtype = attn_impl, dtype
+        self.attn_impl, self.dtype, self.ff_chunk = attn_impl, dtype, ff_chunk
         self.ff_fused_min_l, self.p_dropout = ff_fused_min_l, p_dropout
         kw = dict(dim=d_pair, heads=n_heads, dim_head=performer_dim_head,
                   p_dropout=p_dropout, generalized_attention=True,
@@ -155,6 +174,13 @@ class PairUpdateWithAxialAttentionLayer(nn.Module):
                 x.contiguous(), self.ln_ff.weight.float(), self.ln_ff.bias.float(),
                 ff.fc1.weight.t().to(cdt), ff.fc1.bias.float(),
                 ff.fc2.weight.t().to(cdt), ff.fc2.bias.float(), LN_EPS)
+        ranges = chunks(x.shape[1], self.ff_chunk)
+        if len(ranges) > 1 and not self.training:  # pointwise: exact, no halo
+            out = torch.empty_like(x)
+            for lo, hi in ranges:
+                xs = x[:, lo:hi]
+                out[:, lo:hi] = xs + self.ff(self.ln_ff(xs))
+            return out
         return x + self.ff(self.ln_ff(x))
 
 
@@ -164,7 +190,8 @@ class PairUpdateWithAxialAttention(nn.Module):
     def __init__(self, d_pair: int, d_ff: int, n_heads: int = 8, p_dropout: float = 0.1,
                  n_encoder_layers: int = 4, feature_seed: int = 42,
                  performer_dim_head: int = 64, attn_impl: str = "xla",
-                 fused_favor_min_l=None, ff_fused_min_l: int = FUSED_MIN_L, dtype=None):
+                 fused_favor_min_l=None, ff_fused_min_l: int = FUSED_MIN_L, dtype=None,
+                 ff_chunk=None):
         super().__init__()
         self.n = n_encoder_layers
         for i in range(n_encoder_layers):
@@ -172,7 +199,7 @@ class PairUpdateWithAxialAttention(nn.Module):
                 d_pair, d_ff, n_heads, p_dropout, feature_seed=feature_seed + 2 * i,
                 performer_dim_head=performer_dim_head, attn_impl=attn_impl,
                 fused_favor_min_l=fused_favor_min_l, ff_fused_min_l=ff_fused_min_l,
-                dtype=dtype))
+                dtype=dtype, ff_chunk=ff_chunk))
 
     def forward(self, x):
         for i in range(self.n):

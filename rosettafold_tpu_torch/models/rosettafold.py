@@ -17,8 +17,13 @@ checkpoint loads through `bridge.state_dict_from_flax`, which unstacks it.
 What scanning changes in JAX besides the parameter layout is reproduced here:
 with `cfg.scan_blocks` every two-track block uses FAVOR+ seed 42, every
 three-track block 1042 and the final block 9042 (+100 for the axial stack);
-unscanned, block i uses 42 + 1000 * i. Each three-track block uses its own
-static `n_neighbors[i]`, which equals the JAX scanned top-k mask.
+unscanned, block i uses 42 + 1000 * i. Scanned three-track blocks take
+their top-k at K_max = max(n_neighbors[:n_tt]) and cut it to their own
+n_neighbors[i] (`k_dynamic`), as JAX's scanned block does: the dense mask is
+the same as a top-k at n_neighbors[i], but the bucket capacity follows
+K_max. Unscanned, each block takes its own n_neighbors[i]; the final block
+32. `cfg.head_chunk` row-chunks every pair ResNet (each block's and the
+head's), as JAX passes it on as `conv_chunk`.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from .heads import PredictionHead
 from .layers import ConvNHWC, Dense, torch_dtype
 from .msa import MsaUpdateUsingSelfAttention, MsaUpdateWithPair, MsaUpdateWithPairAndCoord
 from .pair import PairUpdateWithAxialAttention, PairUpdateWithMsa
-from .structure import CoordUpdateWithMsaAndPair, InitialCoordGenerationWithMsaAndPair
+from .structure import (SE3_IMPLS, CoordUpdateWithMsaAndPair,
+                        InitialCoordGenerationWithMsaAndPair)
 
 
 class TwoTrackBlock(nn.Module):
@@ -43,7 +49,8 @@ class TwoTrackBlock(nn.Module):
 
     def __init__(self, d_msa: int, d_pair: int, n_encoder_layers: int,
                  p_dropout: float = 0.1, feature_seed: int = 42,
-                 performer_dim_head: int = 64, attn_impl: str = "xla", dtype=None):
+                 performer_dim_head: int = 64, attn_impl: str = "xla", dtype=None,
+                 conv_chunk=None):
         super().__init__()
         self.msa_update_using_self_att = MsaUpdateUsingSelfAttention(
             d_msa, d_msa * 4, n_heads=12, p_dropout=p_dropout,
@@ -51,11 +58,12 @@ class TwoTrackBlock(nn.Module):
             performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype)
         self.pair_update_with_msa = PairUpdateWithMsa(
             d_msa, 32, d_pair, n_heads=12, p_dropout=p_dropout, attn_impl=attn_impl,
-            dtype=dtype)
+            dtype=dtype, row_chunk=conv_chunk)
         self.pair_update_with_axial_attention = PairUpdateWithAxialAttention(
             d_pair, d_pair * 4, n_heads=8, p_dropout=p_dropout,
             n_encoder_layers=n_encoder_layers, feature_seed=feature_seed + 100,
-            performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype)
+            performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype,
+            ff_chunk=conv_chunk)
         self.msa_update_with_pair = MsaUpdateWithPair(
             d_msa, d_pair, n_heads=4, n_encoder_layers=n_encoder_layers,
             p_dropout=p_dropout, dtype=dtype)
@@ -73,18 +81,19 @@ class ThreeTrackBlock(nn.Module):
     unless `final`, which adds the plDDT head instead)."""
 
     def __init__(self, cfg, n_neighbors: int, feature_seed: int, dtype=None,
-                 final: bool = False):
+                 final: bool = False, k_dynamic=None):
         super().__init__()
         self.final = final
         self.two_track = TwoTrackBlock(
             cfg.d_msa, cfg.d_pair, cfg.n_encoder_layers, cfg.p_dropout,
             feature_seed=feature_seed, performer_dim_head=cfg.performer.dim_head,
-            attn_impl=cfg.attn_impl, dtype=dtype)
+            attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk)
         self.coord_update_with_msa_and_pair = CoordUpdateWithMsaAndPair(
             cfg.d_msa, cfg.d_pair, cfg.d_node, cfg.d_edge, cfg.d_state,
             n_neighbors=n_neighbors, p_dropout=cfg.p_dropout,
             knn_exclude_self=cfg.knn_exclude_self, attn_impl=cfg.attn_impl,
-            d_input=cfg.d_input)
+            d_input=cfg.d_input, se3_impl=cfg.se3_impl,
+            bucket_capacity=cfg.se3_bucket_capacity, k_dynamic=k_dynamic)
         if final:
             self.plddt_head = Dense(cfg.d_state, 1)
         else:
@@ -105,11 +114,14 @@ def check_supported(cfg):
     """Raise for configurations whose JAX path this port does not have yet."""
     if cfg.use_template:
         raise NotImplementedError("the template input is not ported yet")
-    if cfg.se3_impl != "dense":
+    if cfg.se3_impl not in SE3_IMPLS:
         raise NotImplementedError(
-            f"se3_impl={cfg.se3_impl!r}: only the dense SE(3) layout is ported")
-    if cfg.long_chunk is not None or cfg.head_chunk is not None:
-        raise NotImplementedError("the row-chunked long-L paths are not ported yet")
+            f"se3_impl={cfg.se3_impl!r}: the {cfg.se3_impl} SE(3) layout is not ported yet"
+            f" (the port has {', '.join(SE3_IMPLS)})")
+    if cfg.long_chunk is not None:
+        raise NotImplementedError(
+            "long_chunk: the row-chunked attention and outer product of the long-L path"
+            " are not ported yet")
 
 
 class RoseTTAFold(nn.Module):
@@ -130,19 +142,23 @@ class RoseTTAFold(nn.Module):
             self.add_module(f"two_track_{i}", TwoTrackBlock(
                 cfg.d_msa, cfg.d_pair, cfg.n_encoder_layers, cfg.p_dropout,
                 feature_seed=seed_i, performer_dim_head=cfg.performer.dim_head,
-                attn_impl=cfg.attn_impl, dtype=dtype))
+                attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk))
         self.initial_coords = InitialCoordGenerationWithMsaAndPair(
             cfg.d_msa, cfg.d_pair, cfg.d_node, cfg.d_edge, n_heads=4, n_layers=4,
             p_dropout=cfg.p_dropout, d_input=cfg.d_input, dtype=dtype)
-        self.n_tt = cfg.n_three_track_blocks - 1
-        for i in range(self.n_tt):
-            seed_i = 1042 if cfg.scan_blocks else 42 + 1000 * (cfg.n_two_track_blocks + i)
+        self.n_tt = n_tt = cfg.n_three_track_blocks - 1
+        k_max = max(cfg.n_neighbors[:n_tt], default=0)
+        for i in range(n_tt):
+            if cfg.scan_blocks:  # top-k at K_max, cut to this block's K
+                seed_i, k, k_dyn = 1042, k_max, cfg.n_neighbors[i]
+            else:
+                seed_i, k, k_dyn = 42 + 1000 * (cfg.n_two_track_blocks + i), cfg.n_neighbors[i], None
             self.add_module(f"three_track_{i}", ThreeTrackBlock(
-                cfg, cfg.n_neighbors[i], seed_i, dtype=dtype))
+                cfg, k, seed_i, dtype=dtype, k_dynamic=k_dyn))
         # the final block: 32 neighbors, no structure -> MSA feedback, plDDT head
         self.final_block = ThreeTrackBlock(cfg, 32, 42 + 9000, dtype=dtype, final=True)
         self.prediction_head = PredictionHead(cfg.d_pair, 4, cfg.p_dropout, dtype=dtype,
-                                              conv_impl=cfg.attn_impl)
+                                              conv_impl=cfg.attn_impl, row_chunk=cfg.head_chunk)
         if init:
             init_like_flax(self, torch.Generator().manual_seed(seed))
         self.eval()

@@ -1,10 +1,14 @@
-"""SE(3)-equivariant transformer on dense masked neighborhoods (port of the
-dense layout of rosettafold_tpu/models/se3.py). float32 throughout.
+"""SE(3)-equivariant transformer on masked dst-major neighborhoods (port of
+the dense and gather layouts of rosettafold_tpu/models/se3.py). float32
+throughout.
 
 Features are dicts {degree: (B, L, multiplicity, 2*degree+1)}; edge tensors
-are dst-major: T[b, j, i] describes the edge i -> j, rel_pos[b, j, i] =
-x_j - x_i. With impl="pallas" each GSE3Res runs its V/K partial convolutions
-and attention through kernel B (ops/cuda/se3_attend.py).
+are dst-major: T[b, j, s] describes the edge from source slot s into j,
+rel_pos[b, j, s] = x_j - x_src. Dense layout: slot s is node s (S == L).
+Gather layout: src_idx (B, L, S) names each slot's node, and the plain path
+gathers the node features per layer to (B, L, S, m, 2d+1). With
+impl="pallas" each GSE3Res runs its V/K partial convolutions and attention
+through kernel B (ops/cuda/se3_attend.py), which reads the sources in place.
 """
 
 from __future__ import annotations
@@ -85,7 +89,9 @@ class PairwiseConv(nn.Module):
 
 class GConvSE3Partial(nn.Module):
     """Node -> edge partial convolution (the K and V embeddings of the
-    attention), dense layout. Output per degree: (B, m_out, 2d_out+1, J, S)."""
+    attention). h[d] is (B, L, m, 2d+1) on the dense layout and the gathered
+    (B, J, S, m, 2d+1) on the gather layout. Output per degree:
+    (B, m_out, 2d_out+1, J, S)."""
 
     def __init__(self, f_in: Fiber, f_out: Fiber, edge_dim: int = 0):
         super().__init__()
@@ -101,7 +107,10 @@ class GConvSE3Partial(nn.Module):
             msg = None
             for di in self.f_in.degrees:
                 R = getattr(self, f"pc_{di}_{do}")(edge_feat)  # (B,J,S,mo,mi,nf)
-                t = torch.einsum("bjimnf,bicn->bmfcji", basis[f"{di},{do}"], h[di])
+                if h[di].ndim == 4:  # dense: S == L, the node features themselves
+                    t = torch.einsum("bjimnf,bicn->bmfcji", basis[f"{di},{do}"], h[di])
+                else:
+                    t = torch.einsum("bjsmnf,bjscn->bmfcjs", basis[f"{di},{do}"], h[di])
                 contrib = torch.einsum("bjiocf,bmfcji->bomji", R, t)
                 msg = contrib if msg is None else msg + contrib
             out[do] = msg
@@ -228,7 +237,8 @@ class GSE3Res(nn.Module):
         else:
             self.project = G1x1SE3(cat_fiber, f_out)
 
-    def forward(self, h: Features, edge_feat, basis, mask) -> Features:
+    def forward(self, h: Features, edge_feat, basis, mask, src_idx=None) -> Features:
+        """src_idx (B, J, S) int32: the gather layout, else dense."""
         q = self.q(h)
         if self.fused:
             stacked = se3_attend.stack_weights(self.v, self.k, self.meta)
@@ -236,9 +246,12 @@ class GSE3Res(nn.Module):
             qh = qh.reshape(*qh.shape[:2], -1).contiguous()
             z = se3_attend.gse3_attend(
                 edge_feat, basis, {d: t.contiguous() for d, t in h.items()}, mask, qh,
-                stacked, self.meta)
+                stacked, self.meta, src_idx)
         else:
-            z = self.attn(self.v(h, edge_feat, basis), self.k(h, edge_feat, basis), q, mask)
+            src = h if src_idx is None else {
+                d: se3_attend.gather_src(t, src_idx) for d, t in h.items()}
+            z = self.attn(self.v(src, edge_feat, basis), self.k(src, edge_feat, basis), q,
+                          mask)
         z = {d: torch.cat([z[d], h[d]], dim=-2) if d in h else z[d]
              for d in self.f_mid_out.degrees}
         return self.project(z)
@@ -249,8 +262,9 @@ class SE3Transformer(nn.Module):
     attentive self-interaction). The basis and radii are computed once per
     call; the Q_J tables are registered buffers.
 
-    Call: h0 (B, L, l0_in, 1), h1 (B, L, l1_in, 3), edge_feat (B, L, L, edge),
-    rel_pos (B, L, L, 3) [= x_dst - x_src], mask (B, L, L) bool.
+    Call: h0 (B, L, l0_in, 1), h1 (B, L, l1_in, 3), edge_feat (B, L, S, edge),
+    rel_pos (B, L, S, 3) [= x_dst - x_src], mask (B, L, S) bool, and for the
+    gather layout src_idx (B, L, S) int32 (dense: S == L, no src_idx).
     Returns {0: (B, L, l0_out, 1), 1: (B, L, l1_out, 3)}."""
 
     def __init__(self, num_layers: int = 2, num_channels: int = 16, num_degrees: int = 2,
@@ -276,13 +290,13 @@ class SE3Transformer(nn.Module):
             self.register_buffer(f"q_{key}", table, persistent=False)
             self._q_keys.append(key)
 
-    def forward(self, h0, h1, edge_feat, rel_pos, mask) -> Features:
+    def forward(self, h0, h1, edge_feat, rel_pos, mask, src_idx=None) -> Features:
         tables = {k: getattr(self, f"q_{k}") for k in self._q_keys}
         basis = so3.equivariant_basis(rel_pos, self.max_degree, tables)
         r = so3.edge_radii(rel_pos)
         feat = torch.cat([edge_feat.float(), r.float()], dim=-1)
         h = {0: h0.float(), 1: h1.float()}
         for i in range(self.num_layers):
-            h = getattr(self, f"res_{i}")(h, feat, basis, mask)
+            h = getattr(self, f"res_{i}")(h, feat, basis, mask, src_idx)
             h = getattr(self, f"norm_{i}")(h)
-        return self.res_out(h, feat, basis, mask)
+        return self.res_out(h, feat, basis, mask, src_idx)

@@ -1,5 +1,6 @@
-"""Structure-track modules (port of rosettafold_tpu/models/structure.py, dense
-SE(3) layout): graph transformer, initial coordinates, SE(3) refinement."""
+"""Structure-track modules (port of rosettafold_tpu/models/structure.py; SE(3)
+layouts "dense", "gather" and "bucket"): graph transformer, initial
+coordinates, SE(3) refinement."""
 
 from __future__ import annotations
 
@@ -102,18 +103,34 @@ class InitialCoordGenerationWithMsaAndPair(nn.Module):
         return xyz.reshape(*xyz.shape[:2], 3, 3)
 
 
+SE3_IMPLS = ("dense", "gather", "bucket")
+
+
 class CoordUpdateWithMsaAndPair(nn.Module):
-    """SE(3)-equivariant coordinate refinement on the dense kNN layout: node
-    features from the position-weighted MSA sum + query one-hot, edge features
-    from the projected pair; the type-1 output displaces CA first, then N and
-    C relative to the new CA."""
+    """SE(3)-equivariant coordinate refinement on a kNN graph: node features
+    from the position-weighted MSA sum + query one-hot, edge features from the
+    projected pair; the type-1 output displaces CA first, then N and C
+    relative to the new CA.
+
+    se3_impl: "dense", the exact incoming sets on an (L, L) mask; "bucket",
+    the same sets in C static slots per destination (`knn_bucket_indices`,
+    capacity `bucket_capacity`); "gather", the forward-top-k approximation
+    on (L, S) slots. The last two hold O(L*S) edge tensors. With k_dynamic the
+    top-k is taken at n_neighbors and cut to its first k_dynamic slots (the
+    scanned blocks' form). A bucket forward keeps its overflow (B,) int32 in
+    `bucket_overflow` (JAX sows it as diagnostics/se3_bucket_overflow)."""
 
     def __init__(self, d_msa: int, d_pair: int, d_node: int = 64, d_edge: int = 64,
                  d_state: int = 32, n_neighbors: int = 64, p_dropout: float = 0.1,
                  knn_exclude_self: bool = True, attn_impl: str = "xla",
-                 d_input: int = 21):
+                 d_input: int = 21, se3_impl: str = "dense", bucket_capacity=None,
+                 k_dynamic=None):
         super().__init__()
+        if se3_impl not in SE3_IMPLS:
+            raise NotImplementedError(f"se3_impl={se3_impl!r}: the port has {SE3_IMPLS}")
         self.n_neighbors, self.knn_exclude_self = n_neighbors, knn_exclude_self
+        self.se3_impl, self.bucket_capacity, self.k_dynamic = se3_impl, bucket_capacity, k_dynamic
+        self.bucket_overflow = None
         self.ln_msa = LayerNorm(d_msa)
         self.ln_pair = LayerNorm(d_pair)
         self.poswise = PositionWiseWeightFactor(d_msa, 1, p_dropout)
@@ -135,15 +152,33 @@ class CoordUpdateWithMsaAndPair(nn.Module):
         edge = self.edge_ln(F.elu(self.edge_embed(pair)))  # (B, i, j, de)
 
         ca = xyz[:, :, CA_IDX]
-        cond = knn.knn_adjacency(xyz, aa_idx, self.n_neighbors,
-                                 exclude_self=self.knn_exclude_self)
-        mask = knn.incoming_mask(cond).contiguous()       # (B, j, i)
-        rel_pos = ca[:, :, None, :] - ca[:, None, :, :]   # [b, j, i] = x_j - x_i
-        edge_w = edge.transpose(1, 2).contiguous()        # w[b, j, i] = edge[b, i, j]
+        src_idx = None
+        if self.se3_impl == "dense":
+            cond = knn.knn_adjacency(xyz, aa_idx, self.n_neighbors,
+                                     exclude_self=self.knn_exclude_self,
+                                     k_dynamic=self.k_dynamic)
+            mask = knn.incoming_mask(cond).contiguous()       # (B, j, i)
+            rel_pos = ca[:, :, None, :] - ca[:, None, :, :]   # [b, j, i] = x_j - x_i
+            edge_w = edge.transpose(1, 2).contiguous()        # w[b, j, i] = edge[b, i, j]
+        else:
+            if self.se3_impl == "bucket":
+                src_idx, mask, self.bucket_overflow = knn.knn_bucket_indices(
+                    xyz, aa_idx, self.n_neighbors, capacity=self.bucket_capacity,
+                    k_dynamic=self.k_dynamic)
+            else:
+                src_idx, mask = knn.knn_gather_indices(xyz, aa_idx, self.n_neighbors,
+                                                       k_dynamic=self.k_dynamic)
+            B, L, S = src_idx.shape
+            idx = src_idx.long()
+            ca_src = torch.gather(ca, 1, idx.reshape(B, L * S, 1).expand(-1, -1, 3))
+            rel_pos = ca[:, :, None, :] - ca_src.reshape(B, L, S, 3)
+            # w[b, j, s] = edge[b, src_idx[b, j, s], j]: along axis 2 of edge^T
+            edge_w = torch.gather(edge.transpose(1, 2), 2,
+                                  idx[..., None].expand(-1, -1, -1, edge.shape[-1]))
 
         h0 = node[..., None]
         h1 = xyz - ca[:, :, None, :]
-        out = self.se3(h0, h1, edge_w, rel_pos, mask)
+        out = self.se3(h0, h1, edge_w, rel_pos, mask, src_idx)
         state = out[0][..., 0]
         disp = out[1]
         ca_new = ca + disp[:, :, CA_IDX]

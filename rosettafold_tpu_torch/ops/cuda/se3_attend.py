@@ -1,13 +1,18 @@
-"""Dense SE(3) attend (kernel B): wrapper of csrc/se3_attend.cu, its plain
+"""SE(3) attend (kernel B): wrapper of csrc/se3_attend.cu, its plain
 PyTorch version, and the weight stacking both read.
 
-Port of rosettafold_tpu/ops/pallas/se3_attend.py, dense layout only. The
-kernel takes the natural layouts of that file's `xla_reference`:
+Port of rosettafold_tpu/ops/pallas/se3_attend.py, dense and gather layouts.
+The kernel takes the natural layouts of that file's `xla_reference`:
 feat (B, J, S, ed); basis '{di},{do}' -> (B, J, S, 2do+1, 2di+1, nf);
-h {0: (B, L, m0, 1), 1: (B, L, m1, 3)} with S == L; mask (B, J, S) bool;
-qh (B, J, H*ck). Returns {d: (B, J, m_v, 2d+1)}: the GMABSE3 output. float32.
-The backward is JAX's (`_bwd_rule`): the vjp of the plain version,
-recomputed.
+h {0: (B, L, m0, 1), 1: (B, L, m1, 3)}; mask (B, J, S) bool; qh (B, J, H*ck).
+Dense layout: source slot s is node s, so S == L. Gather layout: src_idx
+(B, J, S) int32 names each slot's source node, for any L; the kernel reads
+h[b, src_idx[b, j, s]] in place (JAX gathers per-edge planes for Mosaic's
+layout, `gather_h_planes`; nothing is gathered into device memory here), and
+never reads the index of a masked slot. Returns {d: (B, J, m_v, 2d+1)}: the
+GMABSE3 output. float32. The backward is JAX's (`_bwd_rule`): the vjp of the
+plain version, recomputed; on the gather layout it reaches h through the
+gather.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ import torch
 from . import build
 from .grad import plain_vjp
 
-launches = 0  # kernel launches made by this process
+launches = 0         # dense-layout kernel launches made by this process
+gather_launches = 0  # gather-layout (src_idx) kernel launches
 
 MID = 32
 MAX_PAIRS = 8
@@ -97,10 +103,24 @@ def stack_weights(v_mod, k_mod, meta: Meta):
             torch.cat(w3).float(), torch.cat(b3)[:, None].float())
 
 
-def se3_attend_plain(feat, basis, h, mask, qh, stacked, meta: Meta):
-    """The kernel's math in plain PyTorch (port of `xla_reference`, dense)."""
+def gather_src(h, src_idx, mask=None):
+    """Node features (B, L, m, n) at each slot's source: (B, J, S, m, n).
+    Masked slots (where `mask` is False) read node 0, whatever their index."""
+    if mask is not None:
+        src_idx = torch.where(mask, src_idx, torch.zeros_like(src_idx))
+    B, J, S = src_idx.shape
+    rows = torch.gather(h.reshape(B, h.shape[1], -1), 1,
+                        src_idx.long().reshape(B, J * S, 1).expand(-1, -1, h[0, 0].numel()))
+    return rows.reshape(B, J, S, *h.shape[2:])
+
+
+def se3_attend_plain(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
+    """The kernel's math in plain PyTorch (port of `xla_reference`; with
+    src_idx, its gather form on the features gathered by `gather_src`)."""
     w1t, misc, w2t, w3t, w3b = stacked
     feat = feat.float()
+    if src_idx is not None:
+        h = {d: gather_src(v, src_idx, mask) for d, v in h.items()}
 
     def ln(x, scale, bias):
         mu = x.mean(-1, keepdim=True)
@@ -116,8 +136,8 @@ def se3_attend_plain(feat, basis, h, mask, qh, stacked, meta: Meta):
         a = torch.relu(ln(a, misc[r0:r0 + MID, 4], misc[r0:r0 + MID, 5]))
         rt = a @ w3t[p.w3_off:p.w3_off + p.w3_rows].T + w3b[p.w3_off:p.w3_off + p.w3_rows, 0]
         R = rt.reshape(*rt.shape[:-1], p.mo, p.nf, p.mi)  # permuted (o, f, c)
-        t = torch.einsum("bjimnf,bicn->bjimfc", basis[f"{p.di},{p.do}"].float(),
-                         h[p.di].float())
+        eq = "bjimnf,bicn->bjimfc" if src_idx is None else "bjsmnf,bjscn->bjsmfc"
+        t = torch.einsum(eq, basis[f"{p.di},{p.do}"].float(), h[p.di].float())
         contrib = torch.einsum("bjsofc,bjsmfc->bjsom", R, t)
         prev = msg[p.branch].get(p.do)
         msg[p.branch][p.do] = contrib if prev is None else prev + contrib
@@ -183,7 +203,7 @@ def _kernel_meta(meta: Meta) -> _KMeta:
     return km
 
 
-def _check(feat, basis, h, mask, qh, stacked, meta: Meta):
+def _check(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
     if tuple(d for d, _ in meta.f_in) != (0, 1):
         raise ValueError(f"kernel needs input degrees (0, 1): {meta.f_in}")
     for fib in (meta.f_value, meta.f_key):
@@ -196,10 +216,18 @@ def _check(feat, basis, h, mask, qh, stacked, meta: Meta):
         raise TypeError(f"mask must be bool: {mask.dtype}")
     if feat.shape != (B, J, S, meta.ed):
         raise ValueError(f"feat {tuple(feat.shape)} != {(B, J, S, meta.ed)}")
+    if src_idx is not None:
+        if src_idx.shape != (B, J, S) or src_idx.dtype != torch.int32:
+            raise ValueError(f"src_idx must be int32 {(B, J, S)}: {tuple(src_idx.shape)} "
+                             f"{src_idx.dtype}")
+        if src_idx.device != mask.device:
+            raise ValueError("all inputs must be on one device")
     for d, m in meta.f_in:
-        if h[d].shape != (B, S, m, 2 * d + 1):
-            raise ValueError(f"dense layout needs h[{d}] (B, S=L, {m}, {2 * d + 1}): "
-                             f"{tuple(h[d].shape)}")
+        n_src = h[d].shape[1] if src_idx is not None else S
+        if h[d].shape != (B, n_src, m, 2 * d + 1) or n_src < 1:
+            raise ValueError(
+                f"h[{d}] must be (B, L, {m}, {2 * d + 1}), with L == S = {S} unless src_idx "
+                f"is given: {tuple(h[d].shape)}")
     for di in (0, 1):
         for do in (0, 1):
             shape = (B, J, S, 2 * do + 1, 2 * di + 1, 2 * min(di, do) + 1)
@@ -212,15 +240,17 @@ def _check(feat, basis, h, mask, qh, stacked, meta: Meta):
         raise ValueError("all inputs must be on one device")
 
 
-def _launch(feat, basis, h, mask, qh, stacked, meta: Meta):
-    global launches
+def _launch(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
+    global launches, gather_launches
     B, J, S = mask.shape
+    L = h[0].shape[1]
     if len(meta.pairs) > MAX_PAIRS:
         raise ValueError(f"{len(meta.pairs)} degree pairs > {MAX_PAIRS}")
     w1t, misc, w2t, w3t, w3b = stacked
     args = [feat, basis["0,0"], basis["0,1"], basis["1,0"], basis["1,1"], h[0], h[1],
             mask, qh, w1t.t().contiguous(), misc, w2t, w3t, w3b]
-    if not all(t.is_contiguous() for t in args):
+    if not all(t.is_contiguous() for t in args) or not (
+            src_idx is None or src_idx.is_contiguous()):
         raise ValueError("SE(3) attend kernel needs contiguous inputs")
     km = _kernel_meta(meta)
     lib = build.load("se3_attend")
@@ -233,12 +263,16 @@ def _launch(feat, basis, h, mask, qh, stacked, meta: Meta):
     if B * J:
         fn = lib.se3_attend_fwd
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 15 + [ctypes.c_int] * 4
+        fn.argtypes = ([ctypes.c_void_p] * 16 + [ctypes.c_int] * 4
                        + [ctypes.POINTER(_KMeta), ctypes.c_void_p])
-        rc = fn(*[build.ptr(t) for t in args], build.ptr(out), B, J, S, S,
+        idx = ctypes.c_void_p(None) if src_idx is None else build.ptr(src_idx)
+        rc = fn(*[build.ptr(t) for t in args], idx, build.ptr(out), B, J, S, L,
                 ctypes.byref(km), build.stream_of(feat))
         build.check(lib, rc, "se3_attend_fwd")
-        launches += 1
+        if src_idx is None:
+            launches += 1
+        else:
+            gather_launches += 1
     z, col = {}, 0
     for d, mv in meta.f_value:
         nd = 2 * d + 1
@@ -250,47 +284,50 @@ def _launch(feat, basis, h, mask, qh, stacked, meta: Meta):
 _BASIS_KEYS = ("0,0", "0,1", "1,0", "1,1")
 
 
-def _plain_flat(mask, meta, feat, qh, h0, h1, *rest):
+def _plain_flat(mask, src_idx, meta, feat, qh, h0, h1, *rest):
     """se3_attend_plain on flat operands: the basis in _BASIS_KEYS order, then
     the five stacked weights; returns the outputs in f_value order."""
     basis = dict(zip(_BASIS_KEYS, rest[:4]))
-    z = se3_attend_plain(feat, basis, {0: h0, 1: h1}, mask, qh, rest[4:], meta)
+    z = se3_attend_plain(feat, basis, {0: h0, 1: h1}, mask, qh, rest[4:], meta, src_idx)
     return [z[d] for d, _ in meta.f_value]
 
 
-def _forward(feat, basis, h, mask, qh, stacked, meta: Meta):
+def _forward(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
     """The kernel on CUDA tensors, the plain version on CPU ones."""
     if mask.device.type == "cpu":
-        return se3_attend_plain(feat, basis, h, mask, qh, stacked, meta)
+        return se3_attend_plain(feat, basis, h, mask, qh, stacked, meta, src_idx)
     if mask.device.type == "cuda":
-        return _launch(feat, basis, h, mask, qh, stacked, meta)
+        return _launch(feat, basis, h, mask, qh, stacked, meta, src_idx)
     raise ValueError(f"unsupported device {mask.device}")
 
 
 class _GSE3Attend(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, meta, mask, *flat):
+    def forward(ctx, meta, mask, src_idx, *flat):
         ctx.meta = meta
-        ctx.save_for_backward(mask, *flat)
+        ctx.save_for_backward(mask, src_idx, *flat)
         feat, qh, h0, h1, *rest = flat
         z = _forward(feat, dict(zip(_BASIS_KEYS, rest[:4])), {0: h0, 1: h1}, mask, qh, rest[4:],
-                     meta)
+                     meta, src_idx)
         return tuple(z[d] for d, _ in meta.f_value)
 
     @staticmethod
     def backward(ctx, *gz):
-        mask, *flat = ctx.saved_tensors
+        mask, src_idx, *flat = ctx.saved_tensors
         meta = ctx.meta
-        return (None, None, *plain_vjp(lambda *t: _plain_flat(mask, meta, *t), flat, list(gz)))
+        return (None, None, None,
+                *plain_vjp(lambda *t: _plain_flat(mask, src_idx, meta, *t), flat, list(gz)))
 
 
-def gse3_attend(feat, basis, h, mask, qh, stacked, meta: Meta):
+def gse3_attend(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
     """Fused V/K partial convolutions + equivariant attention of one GSE3Res
     layer, differentiable: the kernel on CUDA tensors, the plain version on
-    CPU ones; without grad mode the forward alone, outside autograd."""
-    _check(feat, basis, h, mask, qh, stacked, meta)
+    CPU ones; without grad mode the forward alone, outside autograd. With
+    src_idx (B, J, S) int32 the gather layout: slot s of destination j reads
+    node src_idx[b, j, s] of h (B, L, m, 2d+1); without it S == L."""
+    _check(feat, basis, h, mask, qh, stacked, meta, src_idx)
     if not torch.is_grad_enabled():
-        return _forward(feat, basis, h, mask, qh, stacked, meta)
-    z = _GSE3Attend.apply(meta, mask, feat, qh, h[0], h[1],
+        return _forward(feat, basis, h, mask, qh, stacked, meta, src_idx)
+    z = _GSE3Attend.apply(meta, mask, src_idx, feat, qh, h[0], h[1],
                           *(basis[k] for k in _BASIS_KEYS), *stacked)
     return {d: t for (d, _), t in zip(meta.f_value, z)}

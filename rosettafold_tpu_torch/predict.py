@@ -8,9 +8,10 @@ Usage:
 
 Without --params the weights are a random init drawn from --seed. --params
 takes a `torch.save`d state_dict of this port, e.g. one made from a JAX
-checkpoint with `bridge.state_dict_from_flax`. With `--preset fast` the CUDA
-kernels serve chains up to 384 residues; above that the fast preset picks the
-bucketed SE(3) layout, which is not ported and raises NotImplementedError.
+checkpoint with `bridge.state_dict_from_flax`. `--preset fast` serves a chain
+of any length on the CUDA kernels: the dense SE(3) layout up to 384 residues,
+the bucketed one above (kernel B on its gather layout), and above 1024 the
+row-chunked pair ResNets as well (`fast_config`).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from .models.rosettafold import RoseTTAFold
 def fast_config(L: int) -> RoseTTAFoldConfig:
     """The serving configuration (`--preset fast`) at sequence length L: bf16
     trunk, the hand-written kernel suite (attn_impl="pallas"), scanned-block
-    seeds, dense SE(3) up to L=384, head row-chunking above L=1024. Identical
-    to the JAX package's `fast_config`, which tests pin."""
+    seeds, dense SE(3) up to L=384 and bucketed above, head row-chunking
+    above L=1024. Identical to the JAX package's `fast_config`, which tests
+    pin."""
     return RoseTTAFoldConfig(
         max_len=max(260, L), compute_dtype="bfloat16", attn_impl="pallas",
         scan_blocks=True, se3_impl="dense" if L <= 384 else "bucket",
@@ -100,7 +102,9 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0, help="random-init seed")
     p.add_argument("--n-seq", type=int, default=64)
     p.add_argument("--crop", type=int, default=None)
-    p.add_argument("--preset", default="exact", choices=["exact", "fast"])
+    p.add_argument("--preset", default="exact", choices=["exact", "fast"],
+                   help="exact: float32, plain PyTorch; fast: bf16 on the CUDA kernels, any L"
+                        " (bucketed SE(3) above 384 residues, row-chunked head above 1024)")
     p.add_argument("--device", default="cuda")
     p.add_argument("--benchmark", action="store_true",
                    help="run a second, warm forward and report its time")

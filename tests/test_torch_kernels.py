@@ -1,6 +1,7 @@
-"""The port's kernels: A (tied attention), B (dense SE(3) attend), C (fused
-LN + FAVOR+ + residual), D (fused LN + FF + residual), E (fused outer-product
-mean) and F (3x3 conv).
+"""The port's kernels: A (tied attention), B (SE(3) attend, dense and gather
+layouts), C (fused LN + FAVOR+ + residual), D (fused LN + FF + residual), E
+(fused outer-product mean), F (3x3 conv) and H (FAVOR+ linear attention; its
+CPU tests against JAX are in tests/test_torch_long.py).
 
 On the CPU the wrappers run their plain PyTorch versions, which are held here
 against the JAX functions (Pallas interpret mode, or the file's own plain
@@ -19,12 +20,14 @@ from rosettafold_tpu_torch.models import se3 as tse3
 from rosettafold_tpu_torch.models.rosettafold import init_like_flax
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import so3 as tso3
+from rosettafold_tpu_torch.ops.cuda import linear_attention as tla
 from rosettafold_tpu_torch.ops.cuda import conv3x3 as tconv
 from rosettafold_tpu_torch.ops.cuda import fused_ff as tff
 from rosettafold_tpu_torch.ops.cuda import fused_performer as tfp
 from rosettafold_tpu_torch.ops.cuda import outer_product as topm
 from rosettafold_tpu_torch.ops.cuda import se3_attend as tatt
 from rosettafold_tpu_torch.ops.cuda import tied_attention as ttied
+from rosettafold_tpu_torch.ops.performer import gaussian_orthogonal_matrix
 
 try:  # the JAX reference: present on the CPU test host, absent beside the card
     import jax
@@ -190,14 +193,22 @@ def test_se3_plain_matches_jax_kernel_interpret(needs_jax):
 
 
 def test_se3_wrapper_rejects_gather_layout(needs_jax):
+    """Features of S != L nodes without src_idx are no dense layout and raise;
+    with src_idx (the gather layout) the same features are taken."""
     c = _se3_case("res_1", L=8)
     T = _writable
     h = {d: T(v[:, :5]) for d, v in c["h"].items()}  # S != L: not the dense layout
+    args = (T(c["feat"]), {k: T(v) for k, v in c["basis"].items()}, h, T(c["mask"]),
+            T(c["qh"]), tatt.stack_weights(c["tmod"].v, c["tmod"].k, c["tmod"].meta),
+            c["tmod"].meta)
     with pytest.raises(ValueError):
-        tatt.gse3_attend(T(c["feat"]), {k: T(v) for k, v in c["basis"].items()}, h,
-                         T(c["mask"]), T(c["qh"]),
-                         tatt.stack_weights(c["tmod"].v, c["tmod"].k, c["tmod"].meta),
-                         c["tmod"].meta)
+        tatt.gse3_attend(*args)
+    src = torch.arange(8 * 8, dtype=torch.int32).reshape(1, 8, 8) % 5
+    with torch.no_grad():
+        z = tatt.gse3_attend(*args, src_idx=src)
+    assert all(z[d].shape[:2] == (1, 8) for d in z)
+    with pytest.raises(ValueError):  # the index must be int32 (B, J, S)
+        tatt.gse3_attend(*args, src_idx=src.long())
 
 
 @pytest.mark.gpu
@@ -245,6 +256,63 @@ def test_se3_kernel_matches_plain_on_card(cuda, name):
     assert tatt.launches == before + 1
     for d in ref:
         torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
+
+
+def _h_inputs(P, L, dh, m, seed=0):
+    """Kernel H's operands: q, k at dh^-0.25 of unit variance, v unit, the
+    seed-0 FAVOR+ projection (m, dh)."""
+    rng = np.random.default_rng(seed)
+    s = dh ** -0.25
+    q, k = ((rng.normal(size=(P, L, dh)) * s).astype(np.float32) for _ in range(2))
+    v = rng.normal(size=(P, L, dh)).astype(np.float32)
+    return q, k, v, gaussian_orthogonal_matrix(m, dh, seed=0).astype(np.float32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SE3_LAYERS))
+@pytest.mark.parametrize("L,S", [(300, 272), (77, 33)])
+def test_se3_gather_kernel_matches_plain_on_card(cuda, name, L, S):
+    f_in_d, f_out_d, div, heads = SE3_LAYERS[name]
+    g = torch.Generator().manual_seed(0)
+    mod = tse3.GSE3Res(tse3.Fiber(f_in_d), tse3.Fiber(f_out_d), 64, div, heads, impl="pallas")
+    init_like_flax(mod, g)
+    mod = mod.to(cuda)
+    xyz = torch.cumsum(torch.randn(1, L, 3, 3, generator=g) * 2.2, 1).to(cuda)
+    src, mask, _ = tknn.knn_bucket_indices(xyz, torch.arange(L, device=cuda)[None], 64,
+                                           capacity=S)
+    ca = xyz[:, :, 1]
+    rel = ca[:, :, None] - ca[0][src.long()]
+    basis = {k: v.contiguous() for k, v in tso3.equivariant_basis(rel, 1).items()}
+    feat = torch.cat([torch.randn(1, L, S, 64, generator=g).to(cuda), tso3.edge_radii(rel)],
+                     -1).contiguous()
+    h = {d: torch.randn(1, L, m, 2 * d + 1, generator=g).to(cuda) for d, m in f_in_d.items()}
+    ck = sum((m // heads) * (2 * d + 1) for d, m in mod.f_mid_in.dict.items())
+    qh = torch.randn(1, L, heads * ck, generator=g).to(cuda)
+    with torch.no_grad():
+        args = (feat, basis, h, mask, qh, tatt.stack_weights(mod.v, mod.k, mod.meta), mod.meta,
+                src)
+        before = (tatt.launches, tatt.gather_launches)
+        z = tatt.gse3_attend(*args)
+        ref = tatt.se3_attend_plain(*args)
+    torch.cuda.synchronize()
+    assert (tatt.launches, tatt.gather_launches) == (before[0], before[1] + 1)
+    for d in ref:
+        torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("P,L", [(64, 512), (7, 77)])
+def test_linear_attention_kernel_matches_plain_on_card(cuda, dtype, P, L):
+    q, k, v, proj = (torch.from_numpy(x).to(cuda, dtype) for x in _h_inputs(P, L, 64, 320))
+    before = tla.launches
+    out = tla.generalized_linear_attention(q, k, v, proj)
+    ref = tla.linear_attention_plain(q, k, v, proj)
+    torch.cuda.synchronize()
+    assert tla.launches == before + 1 and out.dtype == dtype
+    # float32: the JAX kernel test's 3e-5; bf16: two bf16 ulps (2^-6) + 1e-2
+    atol, rtol = (3e-5, 3e-5) if dtype == torch.float32 else (1e-2, 2.0 ** -6)
+    torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
 
 
 # ------------------------------------------------------- pair-track kernels

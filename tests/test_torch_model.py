@@ -110,19 +110,35 @@ def test_slice_with_pair_kernels_matches_jax():
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("length", [384, 385])
+@pytest.mark.parametrize("length", [384, 385, 1025])
 def test_fast_preset_range(length):
-    """The fast preset's kernel mode is built up to L = 384; above it the
-    preset picks the bucketed SE(3) layout, which is not ported and raises.
-    (Built on the meta device: structure only, no flagship-size memory.)"""
+    """The fast preset builds at every L: the dense SE(3) layout up to
+    L = 384, the bucketed one above, and above 1024 the row-chunked pair
+    ResNets (head_chunk 512) as well. (Built on the meta device: structure
+    only, no flagship-size memory.)"""
     cfg = tpredict.fast_config(length)
     with torch.device("meta"):
-        if length > 384:
-            with pytest.raises(NotImplementedError, match="bucket"):
-                RoseTTAFold(cfg, init=False)
-        else:
-            model = RoseTTAFold(cfg, init=False)
-            assert model.config.attn_impl == "pallas" and model.config.se3_impl == "dense"
+        model = RoseTTAFold(cfg, init=False)
+    assert model.config.attn_impl == "pallas"
+    assert model.config.se3_impl == ("dense" if length <= 384 else "bucket")
+    coord = model.three_track_0.coord_update_with_msa_and_pair
+    assert (coord.se3_impl, coord.n_neighbors, coord.k_dynamic) == (
+        model.config.se3_impl, 128, 128)  # scanned: top-k at K_max, cut to the block's K
+    chunk = 512 if length > 1024 else None
+    assert model.config.head_chunk == chunk
+    assert model.prediction_head.theta_head.row_chunk == chunk
+    assert model.final_block.two_track.pair_update_with_msa.row_chunk == chunk
+
+
+@pytest.mark.parametrize("field,value,what", [("se3_impl", "scatter", "scatter"),
+                                              ("long_chunk", 256, "long_chunk"),
+                                              ("use_template", True, "template")])
+def test_unported_paths_raise(field, value, what):
+    """The scatter SE(3) layout, the long_chunk path and the template input
+    are not ported: the model refuses them and names what is missing."""
+    cfg = dataclasses.replace(tpredict.fast_config(512), **{field: value})
+    with torch.device("meta"), pytest.raises(NotImplementedError, match=what):
+        RoseTTAFold(cfg, init=False)
 
 
 def test_predict_cli_writes_pdb_npz_json(tmp_path, capsys):
