@@ -8,7 +8,8 @@ Phases (any failure exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints torch/CUDA versions and
      `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`;
   2. build: compiles the kernels' CUDA sources from csrc/ (one nvcc per
-     source, all at once, sm_90a);
+     source, all at once, sm_90a), logging each kernel's registers, stack
+     and spills (-Xptxas -v);
   3. kernel vs plain at the main path's shapes, TF32 off, float32 and
      bfloat16: tied attention (A) at L in {120, 128, 250} and every MSA depth
      N the serving and training phases run (PATH_NS), and in bfloat16 at the
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero and prints no result line):
      the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
      + residual (C) over both axes, with and without LN/residual; fused LN +
      FF + residual (D); outer-product mean (E) at each N of PATH_NS; 3x3 conv (F)
-     at dilations 1/2/4/8 with and without the pre-op; and C (LN + residual,
+     at dilations 1/2/4/8 with and without the pre-op, beside cuDNN's conv at each
+     dilation, logging the pre-op's cost in bf16; and C (LN + residual,
      both axes), D, E (at the request's N) and F in bfloat16 at B=1, L=512
      and L=1100, their plain versions in row slices of 128. Each shape logs
      max|d| against its bound, the kernel's and the plain version's CUDA-event
@@ -32,7 +34,7 @@ Phases (any failure exits non-zero and prints no result line):
      B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over both axes, with and without LN,
      at L=128 (B=4) and L=250 (B=1); F's float32-output input gradient at
      dilations 1/2/4/8; the same logs, and the library yardsticks (SDPA's
-     backward, cuDNN's conv input gradient);
+     backward, cuDNN's conv input gradient at each dilation);
   4. serving: requests through `predict()` with the fast preset, made from
      examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120 / 8,
      crop 128 / 64, the whole chain L=250 / 32), each timed over repeated warm
@@ -147,6 +149,9 @@ F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
            "tied_attention_bwd": (3e-5, 0.0), "fused_performer_bwd": (2e-4, 1e-3),
            "conv3x3_bwd": (2e-5, 2e-5)}
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
+# kernel F's device kernels (csrc/conv3x3.cu): the bf16 conv, its pre-op launch,
+# the float32 conv; each profile logs their share
+F_KERNELS = ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel")
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
 # cores, HBM3
@@ -216,6 +221,11 @@ class Results:
     def __init__(self):
         self.kernels = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
+    def by_dilation(self, name, dil, ms, library_ms):
+        """F's and F-bwd's main-shape times at each dilation, beside the library's."""
+        self.kernels[name].setdefault("by_dilation", {})[str(dil)] = {
+            "ms": ms, "library_ms": library_ms}
+
     def case(self, name, tag, kernel, plain, args, dtype_name, main=False, library=None,
              work_share=1.0, iters=10, grad=False):
         import torch
@@ -259,6 +269,7 @@ class Results:
         if main:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
+        return ms, lib_ms
 
 
 def phase_device():
@@ -284,9 +295,42 @@ def phase_build():
         build.load(name)
         secs, out = build.build_log.get(name, (0.0, ""))
         log(f"build {name}: {secs:.2f} s")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log("  " + line.strip())
+        for line in _ptxas_lines(out):
+            log("  " + line)
+
+
+def _kernel_name(mangled):
+    """The kernel's own name out of its mangled one (length-prefixed
+    identifiers), with <bf16> / <float> for the kernels templated on them."""
+    pos = mangled.find("kernel")
+    if pos < 0:
+        return mangled[-60:]
+    end = pos + len("kernel")
+    for start in range(pos, 0, -1):
+        digits = str(end - start)
+        if mangled[start - len(digits):start] == digits:
+            rest = mangled[end:]
+            tpl = ("<bf16>" if rest.startswith("I13__nv_bfloat16")
+                   else "<float>" if rest.startswith("If") else "")
+            return mangled[start:end] + tpl
+    return mangled[-60:]
+
+
+def _ptxas_lines(out):
+    """One line per compiled kernel from nvcc's -Xptxas -v output: its name,
+    registers, stack and spills; and any warning of serialised wgmma (C75xx)."""
+    lines, entry, props = [], None, ""
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            entry = _kernel_name(line.split("'")[1] if "'" in line else line)
+        elif "stack frame" in line:
+            props = line.strip()
+        elif "Used" in line and "registers" in line and entry is not None:
+            lines.append(f"{entry}: {line.split(':', 1)[1].strip()}; {props}")
+            entry, props = None, ""
+        elif "(C75" in line and "C7519" not in line:
+            lines.append(line.strip()[:200])
+    return lines
 
 
 def _dt(name):
@@ -530,23 +574,31 @@ def phase_pair_kernels(res):
                 res.case("outer_product", f"{shape} N={N}", op.fused_outer_product_mean,
                          _in_rows(op.outer_product_plain, rows, 2, 1), args, dname,
                          main=main and N == 8, iters=10 if main and N == 8 else iters)
-            # F
+            # F; at the main shape cuDNN's conv at each dilation (channels_last, no
+            # pre-op; 24 of the 32 head-tower calls are dilated); in bf16 the
+            # pre-op's cost (F with it against F without it)
             wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
             pre = (1.0 + _normal((B, D), 0.1, g), _normal((B, D), 0.1, g))
+            xn = x.permute(0, 3, 1, 2)
+            wn = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
             for dil in (1, 2, 4, 8):
+                ms = {}
                 for with_pre in (False, True):
                     args = (x, wc, pre if with_pre else None, dil, dt)
                     is_main = main and dil == 1 and not with_pre
                     lib = None
-                    if is_main:  # one cuDNN call, channels_last, no pre-op
-                        xn = x.permute(0, 3, 1, 2)
-                        wn = wc.permute(3, 2, 0, 1).contiguous(
-                            memory_format=torch.channels_last)
-                        lib = lambda: F.conv2d(xn, wn, padding=1)  # noqa: E731
-                    res.case("conv3x3", f"{shape} dilation {dil}{' pre-op' if with_pre else ''}",
-                             cv.conv3x3_fused, cv.conv3x3_plain, args, dname, main=is_main,
-                             library=lib, iters=10 if is_main else iters)
-            del x
+                    if main and not with_pre:
+                        lib = lambda d=dil: F.conv2d(xn, wn, padding=d, dilation=d)  # noqa: E731
+                    ms[with_pre], lib_ms = res.case(
+                        "conv3x3", f"{shape} dilation {dil}{' pre-op' if with_pre else ''}",
+                        cv.conv3x3_fused, cv.conv3x3_plain, args, dname, main=is_main,
+                        library=lib, iters=10 if main else iters)
+                    if lib is not None:
+                        res.by_dilation("conv3x3", dil, ms[with_pre], lib_ms)
+                if dname == "bfloat16":
+                    log(f"conv3x3 {shape} dilation {dil} bfloat16: pre-op cost {ms[True]:.4f} /"
+                        f" {ms[False]:.4f} ms = {ms[True] / ms[False]:.3f}x")
+            del x, xn
 
 
 def phase_backward_kernels(res):
@@ -618,21 +670,24 @@ def phase_backward_kernels(res):
             dt = _dt(dname)
             gc = _normal((B, L, L, D), 1.0, g, dt)
             wc = _normal((3, 3, D, D), (9 * D) ** -0.5, g, dt)
+            wn = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            gn = gc.permute(0, 3, 1, 2)
             for dil in (1, 2, 4, 8):
-                main = (B, L, dname, dil) == (4, 128, "bfloat16", 1)
+                main_shape = (B, L, dname) == (4, 128, "bfloat16")
 
                 def plain(g_, w_, d_):
                     return cv.conv3x3_plain(g_.to(w_.dtype), torch.flip(w_, (0, 1)).transpose(2, 3),
                                             None, d_, torch.float32)
                 lib = None
-                if main:  # cuDNN's input gradient, channels_last
-                    wn = wc.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
-                    gn = gc.permute(0, 3, 1, 2)
-                    lib = lambda: torch.nn.grad.conv2d_input(  # noqa: E731
-                        (B, D, L, L), wn, gn, padding=1)
-                res.case("conv3x3_bwd", f"B={B} L={L} dilation {dil} (dx, float32 out)",
-                         cv.conv3x3_input_grad, plain, (gc, wc, dil), dname, main=main,
-                         library=lib, iters=10 if main else 3, grad=True)
+                if main_shape:  # cuDNN's input gradient at each dilation, channels_last
+                    lib = lambda d=dil: torch.nn.grad.conv2d_input(  # noqa: E731
+                        (B, D, L, L), wn, gn, padding=d, dilation=d)
+                ms, lib_ms = res.case("conv3x3_bwd", f"B={B} L={L} dilation {dil} (dx, float32 out)",
+                                      cv.conv3x3_input_grad, plain, (gc, wc, dil), dname,
+                                      main=main_shape and dil == 1, library=lib,
+                                      iters=10 if main_shape else 3, grad=True)
+                if lib is not None:
+                    res.by_dilation("conv3x3_bwd", dil, ms, lib_ms)
         del x32, gy32
 
 
@@ -939,6 +994,11 @@ def profile_report(tag, fn):
     log("  top device kernels:")
     for e in sorted(on_device, key=dev, reverse=True)[:10]:
         log(f"  {dev(e) / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
+    f_events = [e for e in on_device if any(k in e.key for k in F_KERNELS)]
+    f_ms = sum(dev(e) for e in f_events) / 1e3
+    log(f"  kernel F ({', '.join(sorted({k for e in f_events for k in F_KERNELS if k in e.key}))}):"
+        f" {f_ms:.2f} ms in {sum(e.count for e in f_events)} launches,"
+        f" {f_ms / max(total, 1e-9):.3f} of the device time")
 
 
 def phase_profile(model):

@@ -88,11 +88,14 @@ def _launch(x, w, pre, dilation, out_dtype, bwd):
     lib = build.load("conv3x3")
     wk = w.permute(0, 1, 3, 2).contiguous()  # (3, 3, Co, C): [tap][co][ci]
     pre_arr = None if pre is None else torch.stack(pre, 1).contiguous()  # (B, 2, C)
+    # bf16 with the pre-op: the kernel's first launch writes the activated input here
+    act = torch.empty_like(x) if pre is not None and x.dtype == torch.bfloat16 else None
     fn = lib.conv3x3_fwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     rc = fn(build.ptr(x), build.ptr(wk),
-            None if pre_arr is None else build.ptr(pre_arr), build.ptr(out),
+            None if pre_arr is None else build.ptr(pre_arr),
+            None if act is None else build.ptr(act), build.ptr(out),
             B, H, W, C, Co, int(dilation), _DTYPES[x.dtype], int(out_dtype == torch.float32),
             build.stream_of(x))
     build.check(lib, rc, "conv3x3_fwd")

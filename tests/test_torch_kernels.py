@@ -487,19 +487,34 @@ def test_ff_kernel_matches_plain_on_card(cuda, dtype):
     _close(out, ref, 2e-5)
 
 
+# (B, H, W, dilation, pre-op, float32 out): the bf16 kernel's block is 128
+# pixels of a row (two warpgroups of 64) and its input segments 64 + 2d
+# pixels, so W = 127/128/129/250 hit its ragged tails, W = 5 at dilation 8
+# and H = 1 taps and kernel rows wholly outside the image, dilation 100 its
+# per-tap segments; float32 out from bf16 is F's input-gradient mode
+CONV_CARD_CASES = [
+    (2, 37, 70, 1, False, False), (2, 37, 70, 2, True, False), (2, 37, 70, 8, True, False),
+    (1, 3, 127, 1, True, False), (1, 3, 128, 2, False, False), (1, 3, 129, 4, True, False),
+    (1, 2, 250, 8, False, False), (1, 3, 5, 8, True, False), (1, 1, 70, 1, True, False),
+    (1, 1, 250, 4, False, False), (4, 5, 40, 2, True, False), (2, 6, 129, 1, True, True),
+    (1, 4, 250, 8, True, True), (1, 3, 70, 100, True, False),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dilation,with_pre", [(1, False), (2, True), (8, True)])
-def test_conv_kernel_matches_plain_on_card(cuda, dtype, dilation, with_pre):
-    x, w, pre = _conv_args(B=2, H=37, W=70, C=288, Co=288)
+@pytest.mark.parametrize("B,H,W,dilation,with_pre,out_f32", CONV_CARD_CASES)
+def test_conv_kernel_matches_plain_on_card(cuda, dtype, B, H, W, dilation, with_pre, out_f32):
+    x, w, pre = _conv_args(B=B, H=H, W=W, C=288, Co=288)
     w = w / 4
     tx, tw = _card(x, cuda, dtype), _card(w, cuda, dtype)
     tpre = tuple(_card(p, cuda) for p in pre) if with_pre else None
+    out_dtype = torch.float32 if out_f32 else dtype
     before = tconv.launches
-    out = tconv.conv3x3_fused(tx, tw, tpre, dilation)
-    ref = tconv.conv3x3_plain(tx, tw, tpre, dilation, dtype)
+    out = tconv.conv3x3_fused(tx, tw, tpre, dilation, out_dtype)
+    ref = tconv.conv3x3_plain(tx, tw, tpre, dilation, out_dtype)
     torch.cuda.synchronize()
-    assert tconv.launches == before + 1
+    assert tconv.launches == before + 1 and out.dtype == out_dtype
     _close(out, ref, 2e-5)
 
 
@@ -795,9 +810,11 @@ def test_performer_backward_kernel_matches_plain_on_card(cuda, dtype, axis1, lnr
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dilation", [1, 8])
-def test_conv_input_grad_kernel_matches_plain_on_card(cuda, dtype, dilation):
-    x, w, _ = _conv_args(B=2, H=37, W=70, C=288, Co=288)
+@pytest.mark.parametrize("B,H,W,dilation", [
+    (2, 37, 70, 1), (2, 37, 70, 8), (1, 3, 127, 2), (1, 3, 129, 4), (1, 2, 250, 8),
+    (1, 1, 128, 1), (4, 4, 70, 2), (1, 3, 5, 8)])
+def test_conv_input_grad_kernel_matches_plain_on_card(cuda, dtype, B, H, W, dilation):
+    x, w, _ = _conv_args(B=B, H=H, W=W, C=288, Co=288)
     g, tw = _card(x, cuda, dtype), _card(w / 4, cuda, dtype)
     before = tconv.bwd_launches
     got = tconv.conv3x3_input_grad(g, tw, dilation)
