@@ -12,8 +12,10 @@ Phases (any failure exits non-zero and prints no result line):
      and spills (-Xptxas -v);
   3. kernel vs plain at the main path's shapes, TF32 off, float32 and
      bfloat16: tied attention (A) at L in {120, 128, 250} and every MSA depth
-     N the serving and training phases run (PATH_NS), and in bfloat16 at the
-     long requests' (L, N) = (512, 64) and (1100, 32) (LONG_PATH);
+     N the serving and training phases run (PATH_NS), at a ragged L=77 with
+     B*H=5 (no multiple of the bf16 kernels' tiles or of the grid), and in
+     bfloat16 at the long requests' (L, N) = (512, 64) and (1100, 32)
+     (LONG_PATH), those two with their times in `by_shape`;
      SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask,
      and on its gather layout (`src_idx` from `knn_bucket_indices` of a
      random-walk backbone) at L=512 and L=1100 with S=272 (K_max 128) and
@@ -26,15 +28,23 @@ Phases (any failure exits non-zero and prints no result line):
      at dilations 1/2/4/8 with and without the pre-op, beside cuDNN's conv at each
      dilation, logging the pre-op's cost in bf16; and C (LN + residual,
      both axes), D, E (at the request's N) and F in bfloat16 at B=1, L=512
-     and L=1100, their plain versions in row slices of 128. Each shape logs
+     and L=1100, their plain versions in row slices of 128; C also at a
+     ragged (B, L) = (3, 77) (problems and positions off the FAVOR+ launch's
+     tiles), both axes, with and without LN/residual. Each shape logs
      max|d| against its bound, the kernel's and the plain version's CUDA-event
-     ms, and the least time the card could take (`bound`);
+     ms (beside a library call: kernel and library timed in turns, kernel,
+     library, library, kernel), and the least time the card could take
+     (`bound`); at A's main shape also A's and SDPA's device time
+     (torch.profiler), at C's each of its three launches' device time beside
+     its own bound (`launches_ms`, `launch_bound_ms`);
   3b. the backward kernels against their plain backward versions, float32
      and bfloat16: tied attention's (G) at L in {128, 250}, N in {8, 16},
      B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over both axes, with and without LN,
      at L=128 (B=4) and L=250 (B=1); F's float32-output input gradient at
      dilations 1/2/4/8; the same logs, and the library yardsticks (SDPA's
-     backward, cuDNN's conv input gradient at each dilation);
+     backward, cuDNN's conv input gradient at each dilation); and F's weight
+     gradient at B=4, L=128 (nine bf16 products summed in float32, as JAX)
+     beside the bf16-rounded sums it replaced (`weight_grad_ms`);
   4. serving: requests through `predict()` with the fast preset, made from
      examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120 / 8,
      crop 128 / 64, the whole chain L=250 / 32), each timed over repeated warm
@@ -57,7 +67,8 @@ Phases (any failure exits non-zero and prints no result line):
      differ; on the bucketed crop, the plain path once more on the kernel
      path's neighborhoods;
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
-     busy share and the top device-time operators;
+     busy share and the top device-time operators; every profile (4b, 6, 7)
+     also logs kernels A's, C's and F's device kernels: calls and ms a call;
   7. training: train.loop.fit with bench_train.py's configuration (bf16,
      kernels, dense SE(3), remat, dropout 0.1, bf16 first moments) on a
      synthetic (A3M, PDB) pair, at B=1 / n_seq 8 / crop 128 and B=4 / n_seq
@@ -149,9 +160,16 @@ F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
            "tied_attention_bwd": (3e-5, 0.0), "fused_performer_bwd": (2e-4, 1e-3),
            "conv3x3_bwd": (2e-5, 2e-5)}
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
-# kernel F's device kernels (csrc/conv3x3.cu): the bf16 conv, its pre-op launch,
-# the float32 conv; each profile logs their share
-F_KERNELS = ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel")
+# device kernels of A (csrc/tied_attention.cu: the bf16 one-launch kernel at
+# L <= 128, 64 < NDv <= 256, the bf16 logits and P.V launches, the float32
+# kernel), C (csrc/fused_performer.cu: the projection, the bf16 and float32
+# FAVOR+ launches, the output projection) and F (csrc/conv3x3.cu: the bf16
+# conv, its pre-op launch, the float32 conv); each profile logs their calls
+# and time
+PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "tied_fwd_f32"),
+            "C": ("performer_proj_kernel", "favor_wgmma_kernel", "favor_f32_kernel",
+                  "performer_out_kernel"),
+            "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel")}
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
 # cores, HBM3
@@ -227,7 +245,7 @@ class Results:
             "ms": ms, "library_ms": library_ms}
 
     def case(self, name, tag, kernel, plain, args, dtype_name, main=False, library=None,
-             work_share=1.0, iters=10, grad=False):
+             work_share=1.0, iters=10, grad=False, by_shape=False):
         import torch
 
         out = kernel(*args)
@@ -250,10 +268,15 @@ class Results:
                            <= atol(b.float()) + BF16_RTOL * b.float().abs()).all())
                      for a, b in pairs)
             what = f"atol {BF16_ATOL}{' x max(1, max|ref|)' if grad else ''} rtol 2^-6"
-        ms = cuda_time(lambda: kernel(*args), iters)
+        def run():
+            return kernel(*args)
+        if library is None:
+            ms, lib_ms = cuda_time(run, iters), None
+        else:  # in turns (kernel, library, library, kernel): a drift of the host hits both
+            turns = [cuda_time(f, iters) for f in (run, library, library, run)]
+            ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
         plain_ms = cuda_time(lambda: plain(*args), iters)
         bound_ms, bound_by = bound(plain, args, out, dtype_name, work_share)
-        lib_ms = None if library is None else cuda_time(library, iters)
         lib = "" if lib_ms is None else f" library {lib_ms:.4f} ms"
         log(f"{name} {tag} {dtype_name}: max|d| {err:.3e} ({what}) kernel {ms:.4f} ms"
             f" plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}){lib}")
@@ -269,6 +292,10 @@ class Results:
         if main:
             rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=lib_ms)
+        if by_shape:  # a served shape besides the main one
+            rec.setdefault("by_shape", {})[tag] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": lib_ms}
         return ms, lib_ms
 
 
@@ -311,7 +338,8 @@ def _kernel_name(mangled):
         if mangled[start - len(digits):start] == digits:
             rest = mangled[end:]
             tpl = ("<bf16>" if rest.startswith("I13__nv_bfloat16")
-                   else "<float>" if rest.startswith("If") else "")
+                   else "<float>" if rest.startswith("If")
+                   else f"<{rest[3:rest.index('E')]}>" if rest.startswith("ILi") else "")
             return mangled[start:end] + tpl
     return mangled[-60:]
 
@@ -346,8 +374,8 @@ def phase_tied(res):
     from rosettafold_tpu_torch.ops.cuda import tied_attention as ta
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    for L in (120, 128, 250):
-        BH = (4 if L <= 128 else 1) * 12
+    for L in (77, 120, 128, 250):
+        BH = 5 if L == 77 else (4 if L <= 128 else 1) * 12
         for N in PATH_NS:
             ND = N * 32
             q, k = (torch.randn(BH, L, ND, device="cuda", generator=g) * 0.3 for _ in range(2))
@@ -362,11 +390,36 @@ def phase_tied(res):
                 res.case("tied_attention", f"B*H={BH} L={L} N={N}", ta.tied_attention_forward,
                          ta.tied_attention_plain, args, dname, main=main, library=lib,
                          iters=10 if main else 3)
+                if main:  # at this size the CUDA-event times above are the host's
+                    dev = {k: _device_ms(f) for k, f in (
+                        ("device_ms", lambda: ta.tied_attention_forward(*args)),
+                        ("library_device_ms", lib))}
+                    log(f"tied_attention B*H={BH} L={L} N={N} bfloat16: device time a call"
+                        f" {dev['device_ms']:.4f} ms, SDPA's {dev['library_device_ms']:.4f} ms")
+                    res.kernels["tied_attention"].update(dev)
     for L, N in LONG_PATH:  # the long requests: B=1, bf16 as served
         q, k = (_normal((12, L, N * 32), 0.3, g, torch.bfloat16) for _ in range(2))
         v = _normal((12, L, N * 32), 1.0, g, torch.bfloat16)
+        qs, ks, vs = (t[:, None] for t in (q, k, v))
         res.case("tied_attention", f"B*H=12 L={L} N={N}", ta.tied_attention_forward,
-                 ta.tied_attention_plain, (q, k, v), "bfloat16", iters=3)
+                 ta.tied_attention_plain, (q, k, v), "bfloat16", iters=3, by_shape=True,
+                 library=lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
+
+
+def _device_ms(fn, name="", calls=20):
+    """Device time a call of fn's kernels whose name holds `name` (all of
+    them by default): torch.profiler's sum over `calls` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "device_time_total", 0) for e in prof.key_averages()
+               if name in e.key) / 1e3 / calls
 
 
 def phase_se3(res):
@@ -513,7 +566,6 @@ def phase_pair_kernels(res):
     from rosettafold_tpu_torch.ops import performer as favor
     from rosettafold_tpu_torch.ops.cuda import conv3x3 as cv
     from rosettafold_tpu_torch.ops.cuda import fused_ff as ff
-    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
     from rosettafold_tpu_torch.ops.cuda import outer_product as op
 
     g = torch.Generator(device="cuda").manual_seed(2)
@@ -532,33 +584,9 @@ def phase_pair_kernels(res):
             x = x32.to(dt)
             main = (B, L, dname) == (4, 128, "bfloat16")
             shape = f"B={B} L={L}"
-            # C: row step (axis 1) and column step, with and without LN/residual
             w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
             w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
-            statics = (64 ** -0.25, 1e-3, 8, 64)
-            for axis in (1, 2):
-                for lnres in (True, False) if rows is None else (True,):
-                    xin = x if axis == 1 else x.reshape(B * L, L, D)
-                    if lnres:
-                        fn = (fp.fused_ln_performer_residual_axis1 if axis == 1
-                              else fp.fused_ln_performer_residual)
-                        args = (xin, gam, bet, *w, *statics, 1e-5)
-
-                        def plain(x_, g_, b_, *rest, ax=axis):
-                            return fp.performer_plain(x_, (g_, b_, rest[-1]), *rest[:-1], ax)
-                    else:
-                        fn = (fp.fused_performer_layer_axis1 if axis == 1
-                              else fp.fused_performer_layer)
-                        args = (xin, *w, *statics)
-
-                        def plain(x_, *rest, ax=axis):
-                            return fp.performer_plain(x_, None, *rest, ax)
-                    # problems: columns of the 4D x (axis 1), rows of the 3D one
-                    res.case("fused_performer",
-                             f"{shape} axis {axis} {'LN+residual' if lnres else 'no LN'}",
-                             fn, _in_rows(plain, rows, 2 if axis == 1 else 0), args, dname,
-                             main=main and axis == 1 and lnres,
-                             iters=10 if main and axis == 1 and lnres else iters)
+            _performer_cases(res, x, gam, bet, w, shape, dname, rows, main, iters)
             # D
             args = (x, gam, bet, _normal((D, FF), D ** -0.5, g, dt), _normal((FF,), 0.1, g),
                     _normal((FF, D), FF ** -0.5, g, dt), _normal((D,), 0.1, g), 1e-5)
@@ -599,6 +627,78 @@ def phase_pair_kernels(res):
                     log(f"conv3x3 {shape} dilation {dil} bfloat16: pre-op cost {ms[True]:.4f} /"
                         f" {ms[False]:.4f} ms = {ms[True] / ms[False]:.3f}x")
             del x, xn
+    # C at a ragged (B, L): problems and positions off the FAVOR+ launch's tiles
+    B, L = 3, 77
+    x32 = _normal((B, L, L, D), 1.0, g)
+    gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
+    for dname in both:
+        dt = _dt(dname)
+        w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
+        w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
+        _performer_cases(res, x32.to(dt), gam, bet, w, f"B={B} L={L}", dname, None, False, 1)
+
+
+def _performer_cases(res, x, gam, bet, w, shape, dname, rows, main, iters):
+    """C over the row step (axis 1) and the column step, with and without
+    LN/residual (LN + residual only where `rows` slices the plain version);
+    at the main shape (axis 1, LN + residual) each launch's device time and
+    bound."""
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+
+    B, L, D = x.shape[0], x.shape[1], x.shape[-1]
+    statics = (64 ** -0.25, 1e-3, 8, 64)
+    for axis in (1, 2):
+        for lnres in (True, False) if rows is None else (True,):
+            xin = x if axis == 1 else x.reshape(B * L, L, D)
+            if lnres:
+                fn = (fp.fused_ln_performer_residual_axis1 if axis == 1
+                      else fp.fused_ln_performer_residual)
+                args = (xin, gam, bet, *w, *statics, 1e-5)
+
+                def plain(x_, g_, b_, *rest, ax=axis):
+                    return fp.performer_plain(x_, (g_, b_, rest[-1]), *rest[:-1], ax)
+            else:
+                fn = (fp.fused_performer_layer_axis1 if axis == 1
+                      else fp.fused_performer_layer)
+                args = (xin, *w, *statics)
+
+                def plain(x_, *rest, ax=axis):
+                    return fp.performer_plain(x_, None, *rest, ax)
+            is_main = main and axis == 1 and lnres
+            # problems: columns of the 4D x (axis 1), rows of the 3D one
+            res.case("fused_performer",
+                     f"{shape} axis {axis} {'LN+residual' if lnres else 'no LN'}",
+                     fn, _in_rows(plain, rows, 2 if axis == 1 else 0), args, dname,
+                     main=is_main, iters=10 if is_main else iters)
+            if is_main:
+                _performer_launches(res, lambda: fn(*args), B * L, L)
+
+
+def _performer_launches(res, call, P, L):
+    """C's three launches at P problems of L positions: device time a call
+    (torch.profiler over 10 calls) and each launch's bound: its matrix
+    products over the bf16 peak against its own inputs and outputs (the
+    scratch included) over HBM."""
+    M, D, HD, MF, DH, H = P * L, 288, 512, 320, 64, 8
+    flops = {"proj": 2 * M * D * 3 * HD,
+             "favor": P * H * (2 * 2 * L * DH * MF + 2 * 2 * L * MF * (DH + 1)),
+             "out": 2 * M * HD * D}
+    nbytes = {"proj": 2 * (M * D + 3 * D * HD + M * 3 * HD),
+              "favor": 2 * (M * 3 * HD + MF * DH + M * HD),
+              "out": 2 * (M * HD + 2 * M * D + HD * D)}
+    bounds = {k: max(flops[k] / PEAK_FLOPS["bfloat16"], nbytes[k] / HBM_BYTES_S) * 1e3
+              for k in flops}
+    names = {"proj": "performer_proj_kernel", "favor": "favor_wgmma_kernel",
+             "out": "performer_out_kernel"}
+    ms = {}
+    for k, name in names.items():
+        ms[k] = _device_ms(call, name, calls=10)
+        by = ("operations" if flops[k] / PEAK_FLOPS["bfloat16"] >= nbytes[k] / HBM_BYTES_S
+              else "bytes")
+        log(f"fused_performer launch {k} ({name}): {ms[k]:.4f} ms a call, bound"
+            f" {bounds[k]:.4f} ms ({by})")
+        require(ms[k] > 0, f"no device time for C's {k} launch in the profile")
+    res.kernels["fused_performer"].update(launches_ms=ms, launch_bound_ms=bounds)
 
 
 def phase_backward_kernels(res):
@@ -689,6 +789,31 @@ def phase_backward_kernels(res):
                 if lib is not None:
                     res.by_dilation("conv3x3_bwd", dil, ms, lib_ms)
         del x32, gy32
+    _weight_grad_times(res, g)
+
+
+def _weight_grad_times(res, g):
+    """F's weight gradient at B=4, L=128, bf16, dilation 1 (46 a train step):
+    nine products summed in float32 (JAX's dw) against the same products
+    rounded to bf16 (the form it replaced), in turns: new, old, old, new."""
+    import torch
+
+    from rosettafold_tpu_torch.ops.cuda import conv3x3 as cv
+
+    a = _normal((4, 128, 128, 288), 1.0, g, torch.bfloat16)
+    gy = _normal((4, 128, 128, 288), 1.0, g, torch.bfloat16)
+
+    def rounded():
+        g2 = gy.reshape(-1, 288)
+        return torch.stack([cv._shift2d(a, ki - 1, kj - 1).reshape(-1, 288).t() @ g2
+                            for ki in range(3) for kj in range(3)])
+    new = [cuda_time(lambda: cv.conv3x3_weight_grad(a, gy, 1), 5)]
+    old = [cuda_time(rounded, 5), cuda_time(rounded, 5)]
+    new.append(cuda_time(lambda: cv.conv3x3_weight_grad(a, gy, 1), 5))
+    f32, b16 = statistics.mean(new), statistics.mean(old)
+    log(f"conv3x3 weight gradient B=4 L=128 bfloat16: float32 sums {f32:.4f} ms, bf16-rounded"
+        f" sums {b16:.4f} ms; 46 a train step: {46 * f32:.2f} against {46 * b16:.2f} ms")
+    res.kernels["conv3x3_bwd"]["weight_grad_ms"] = {"float32_sums": f32, "bf16_sums": b16}
 
 
 def _check_outputs(logits, xyz, plddt, B, L):
@@ -994,11 +1119,14 @@ def profile_report(tag, fn):
     log("  top device kernels:")
     for e in sorted(on_device, key=dev, reverse=True)[:10]:
         log(f"  {dev(e) / 1e3:9.2f} ms {e.count:6d} x  {e.key[:90]}")
-    f_events = [e for e in on_device if any(k in e.key for k in F_KERNELS)]
-    f_ms = sum(dev(e) for e in f_events) / 1e3
-    log(f"  kernel F ({', '.join(sorted({k for e in f_events for k in F_KERNELS if k in e.key}))}):"
-        f" {f_ms:.2f} ms in {sum(e.count for e in f_events)} launches,"
-        f" {f_ms / max(total, 1e-9):.3f} of the device time")
+    for family, names in PROFILED.items():
+        for name in names:
+            hits = [e for e in on_device if name in e.key]
+            if hits:
+                ms, calls = sum(dev(e) for e in hits) / 1e3, sum(e.count for e in hits)
+                log(f"  kernel {family} {name}: {ms:.2f} ms in {calls} launches,"
+                    f" {ms / calls:.4f} ms a launch, {ms / max(total, 1e-9):.3f} of the"
+                    f" device time")
 
 
 def phase_profile(model):

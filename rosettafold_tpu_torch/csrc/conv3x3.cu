@@ -288,9 +288,9 @@ conv3x3_tma_kernel(const __grid_constant__ CUtensorMap xmap,
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks) {
         if (ks < nks) {
-          wgmma_m64n144k16_ss(acc0, desc_sw128(a_row + ks * 32), desc_sw128(w_tile + ks * 32));
-          wgmma_m64n144k16_ss(acc1, desc_sw128(a_row + ks * 32),
-                              desc_sw128(w_tile + W_HALF + ks * 32));
+          Wgmma<144>::ss(acc0, desc_sw128(a_row + ks * 32), desc_sw128(w_tile + ks * 32), 1);
+          Wgmma<144>::ss(acc1, desc_sw128(a_row + ks * 32),
+                         desc_sw128(w_tile + W_HALF + ks * 32), 1);
         }
       }
       wgmma_commit();

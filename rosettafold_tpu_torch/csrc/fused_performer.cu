@@ -24,14 +24,20 @@
 // 320 x 65 float32 (83 KB), so a block cannot hold all 8 heads, and the layer
 // runs as three launches with scratch in device memory:
 //   1. proj:  LN and the q/k/v projections, M = rows, N = 3 * 512, K = 288;
-//   2. favor: one block per (problem, head) streams the positions twice:
-//             phi_k chunks -> ctx in shared memory, then phi_q chunks . ctx;
-//             the (L, m) feature maps exist only in shared memory;
+//   2. favor: per (problem, head) the positions are streamed twice: phi_k
+//             chunks -> ctx, then phi_q chunks . ctx; the (L, m) feature maps
+//             never reach device memory. bfloat16: a persistent grid on
+//             wgmma, ctx in the accumulators of five warpgroups (64 features
+//             each), P resident in shared memory (favor_wgmma_kernel);
+//             float32: one block per (problem, head) on the CUDA cores, ctx
+//             in shared memory;
 //   3. out:   att . Wo + bo (+ x), M = rows, N = 288, K = 512.
 // The scratch (q/k/v and att, 4 * 512 values per position) is the price of
-// the split. bfloat16: tensor cores (mma.sync m16n8k16); float32: CUDA cores.
+// the split. The proj and out launches run bfloat16 on mma.sync m16n8k16,
+// float32 on the CUDA cores.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace rf;
 
@@ -62,7 +68,7 @@ constexpr size_t proj_smem() {
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-proj_kernel(const T* __restrict__ x, Rows rows_, const float* __restrict__ gamma,
+performer_proj_kernel(const T* __restrict__ x, Rows rows_, const float* __restrict__ gamma,
             const float* __restrict__ beta, float ln_eps, const T* __restrict__ wq,
             const T* __restrict__ wk, const T* __restrict__ wv, float scale,
             T* __restrict__ qkv, long long M) {
@@ -92,25 +98,24 @@ proj_kernel(const T* __restrict__ x, Rows rows_, const float* __restrict__ gamma
   }
 }
 
-// ----------------------------------------------------------------- 2. FAVOR+
+// ------------------------------------------------------ 2. FAVOR+, float32
+// float32: the CUDA-core kernel; one block per (head, problem) streams the
+// positions twice, ctx in float32 shared memory (bfloat16: favor_wgmma_kernel).
 template <typename T>
 struct FavorCfg {
-  static constexpr int LC = sizeof(T) == 2 ? 64 : 32;  // positions per chunk
+  static constexpr int LC = 32;  // positions per chunk
   static constexpr int LDD = DH + 8, LDL = LC + 8, LDM = MF + 8, LDNUM = EP + 4;
   static constexpr size_t CTX = sizeof(float) * MF * EP;
   // phase 1: Ks [LC][LDD], Vt [EP][LDL], PhiKt [MF][LDL]
   static constexpr size_t P1 = sizeof(T) * (LC * LDD + EP * LDL + MF * LDL);
   // phase 2: Qs [LC][LDD], PhiQ [LC][LDM], NumS float [LC][LDNUM]
   static constexpr size_t P2 = sizeof(T) * (LC * LDD + LC * LDM) + sizeof(float) * LC * LDNUM;
-  // bf16 keeps ctx^T [EP][LDM] for the mma B operand in the phase-1 region and
-  // the phase-2 buffers in the ctx region; float32 reads ctx in place
-  static constexpr bool SPLIT = sizeof(T) == 2;
-  static constexpr size_t SMEM = SPLIT ? CTX + P1 : CTX + (P1 > P2 ? P1 : P2);
+  static constexpr size_t SMEM = CTX + (P1 > P2 ? P1 : P2);
 };
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-favor_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel_eps,
+favor_f32_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel_eps,
              T* __restrict__ att, int L) {
   using F = FavorCfg<T>;
   constexpr int LC = F::LC, LDD = F::LDD, LDL = F::LDL, LDM = F::LDM, LDNUM = F::LDNUM;
@@ -120,11 +125,9 @@ favor_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel
   T* Ks = reinterpret_cast<T*>(r1);  // phase 1
   T* Vt = Ks + LC * LDD;
   T* PhiKt = Vt + EP * LDL;
-  unsigned char* r2 = F::SPLIT ? smem_raw : r1;  // phase 2
-  T* Qs = reinterpret_cast<T*>(r2);
+  T* Qs = reinterpret_cast<T*>(r1);  // phase 2
   T* PhiQ = Qs + LC * LDD;
   float* NumS = reinterpret_cast<float*>(PhiQ + LC * LDM);
-  T* CtxT = reinterpret_cast<T*>(r1);  // bf16 only: [EP][LDM]
 
   const int h = blockIdx.x;
   const long long p = blockIdx.y;
@@ -169,12 +172,6 @@ favor_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel
     }
   }
   __syncthreads();
-  if (F::SPLIT) {  // ctx rounded to the compute dtype, transposed for mma
-    for (int e = tid; e < MF * EP; e += NTHREADS) {
-      const int m = e % MF, c = e / MF;
-      CtxT[c * LDM + m] = from_f<T>(Ctx[m * EP + c]);
-    }
-  }
 
   // phase 2: att = (phi_q . ctx)[:, :dh] / max((phi_q . ctx)[:, dh], 1e-12)
   for (int l0 = 0; l0 < L; l0 += LC) {
@@ -195,11 +192,8 @@ favor_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel
     for (int rg = warp; rg < LC / 16; rg += NTHREADS / 32) {
       float acc[EP / 8][4];
       zero(acc);
-      if constexpr (F::SPLIT)
-        warp_gemm<EP / 8>(acc, PhiQ + rg * 16 * LDM, LDM, CtxT, LDM, MF);
-      else
-        warp_gemm_strided<EP / 8>(acc, reinterpret_cast<const float*>(PhiQ) + rg * 16 * LDM,
-                                  LDM, Ctx, 1, EP, MF);
+      warp_gemm_strided<EP / 8>(acc, reinterpret_cast<const float*>(PhiQ) + rg * 16 * LDM, LDM,
+                                Ctx, 1, EP, MF);
       for_each(acc, [&](int r, int c, float v) { NumS[(rg * 16 + r) * LDNUM + c] = v; });
     }
     __syncthreads();
@@ -210,6 +204,255 @@ favor_kernel(const T* __restrict__ qkv, const T* __restrict__ proj, float kernel
     }
   }
 }
+
+// -------------------------------------------- 2. FAVOR+, bfloat16 on wgmma
+// A persistent grid (one block an SM) walks the (problem, head) items; the
+// block's five warpgroups each own 64 of the 320 features:
+//  * the projection P (320 x 64) is loaded by TMA once a block and stays;
+//  * phase 1, per chunk of 64 positions (K and V by TMA, a 3-stage ring that
+//    runs ahead into the block's next item): phi_k^T of the warpgroup's
+//    features (P_s . K^T, m64n64k16, both operands in shared memory) ->
+//    relu + eps, zero past L, rounded to bf16 straight into the A fragments
+//    (registers) of ctx_s += phi_k^T . V (V an MN-major B tile); ctx_s
+//    (64 x 64) stays in the warpgroup's float32 accumulators over all L, and
+//    the ones column (the normalizer) is summed from the same bf16 values;
+//  * ctx_s and its normalizer, rounded to bf16, go to shared memory as
+//    phase 2's B operand ([dh][feature] tiles);
+//  * phase 2: warpgroup w takes the position chunks w, w + 5, ... (its own
+//    2-stage Q ring): for each feature slice s, phi_q (Q . P_s^T) -> relu +
+//    eps -> bf16 A fragments of num += phi_q . ctx_s, the normalizer as the
+//    dot of the same values with ctx's ones column; att = num / max(den,
+//    1e-12) into the scratch.
+// Nothing of the (L, 320) feature maps leaves the registers. Every thread
+// runs the K/V issue code in step and thread 0 alone issues (a branch around
+// it serialises the wgmmas); each warpgroup's thread 0 issues its Q loads.
+namespace favor_wg {
+
+using namespace rf::hopper;
+
+constexpr int NWG = MF / 64;  // warpgroups: one 64-feature slice each
+constexpr int NT = NWG * 128;
+constexpr int LC = 64;         // positions a chunk
+constexpr int TILE = 64 * 128;  // 64 rows of 64 bf16, 128-byte swizzle
+constexpr int KV_STAGES = 3, Q_STAGES = 2;
+// shared memory from a 1024-byte boundary
+constexpr int P_OFF = 0;                              // NWG tiles [feature][dh]
+constexpr int CTX_OFF = P_OFF + NWG * TILE;           // NWG tiles [dh][feature]
+constexpr int KV_OFF = CTX_OFF + NWG * TILE;          // KV_STAGES x (K, V) tiles [pos][dh]
+constexpr int Q_OFF = KV_OFF + KV_STAGES * 2 * TILE;  // NWG x Q_STAGES tiles [pos][dh]
+constexpr int DEN_OFF = Q_OFF + NWG * Q_STAGES * TILE;  // MF floats: ctx's ones column
+constexpr int BAR_OFF = DEN_OFF + MF * 4;
+// p_full, kv_full[KV_STAGES], kv_empty[KV_STAGES], q_full[NWG][Q_STAGES]
+constexpr int NBARS = 1 + 2 * KV_STAGES + NWG * Q_STAGES;
+constexpr size_t SMEM = 1024 + BAR_OFF + 8 * NBARS;
+
+// relu(d) + eps as bf16 pairs into the A fragments of K step ks; columns at
+// or past `valid` are zero. sum[h] gains the rounded values of row half h.
+__device__ __forceinline__ void features(uint32_t (&a)[4][4], const float (&d)[32], float eps,
+                                         int valid, int t, float (&sum)[2]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = 16 * ks + 8 * (k >> 1) + 2 * t, e = 8 * ks + 2 * k;
+      a[ks][k] = pack_bf16(col < valid ? fmaxf(d[e], 0.f) + eps : 0.f,
+                           col + 1 < valid ? fmaxf(d[e + 1], 0.f) + eps : 0.f);
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]);
+      sum[k & 1] += __low2float(v) + __high2float(v);
+    }
+}
+
+__global__ void __launch_bounds__(NT, 1)
+favor_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
+                   const __grid_constant__ CUtensorMap p_map, float kernel_eps,
+                   bf16* __restrict__ att, int L, long long items) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+  float* den_s = reinterpret_cast<float*>(smem + DEN_OFF);
+  const uint32_t p_full = base + BAR_OFF, kv_full = p_full + 8,
+                 kv_empty = kv_full + 8 * KV_STAGES, q_full = kv_empty + 8 * KV_STAGES;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  const uint32_t leader = threadIdx.x == 0, wg_leader = (threadIdx.x & 127) == 0;
+  if (leader) {
+    mbar_init(p_full, 1);
+    for (int st = 0; st < KV_STAGES; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, NT / 32);
+    }
+    for (int st = 0; st < NWG * Q_STAGES; ++st) mbar_init(q_full + 8 * st, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+  mbar_arrive_expect_tx(p_full, NWG * TILE, leader);
+  for (int s = 0; s < NWG; ++s)
+    tma_load_2d(base + P_OFF + s * TILE, &p_map, p_full, 0, 64 * s, leader);
+
+  const int nc = (L + LC - 1) / LC;
+  // the K/V loads in the order phase 1 takes them over the block's items
+  long long kv_item = blockIdx.x;
+  int kv_chunk = 0, kv_n = 0;
+  auto issue_kv = [&](int released) {
+    while (kv_item < items && kv_n < released + KV_STAGES) {
+      const int st = kv_n % KV_STAGES;
+      mbar_wait(kv_empty + 8 * st, ((kv_n / KV_STAGES) & 1) ^ 1);
+      const int h = (int)(kv_item % HEADS);
+      const int row = (int)(kv_item / HEADS * L) + kv_chunk * LC;
+      const uint32_t dst = base + KV_OFF + st * 2 * TILE, full = kv_full + 8 * st;
+      mbar_arrive_expect_tx(full, 2 * TILE, leader);
+      tma_load_2d(dst, &qkv_map, full, HD + h * DH, row, leader);
+      tma_load_2d(dst + TILE, &qkv_map, full, 2 * HD + h * DH, row, leader);
+      ++kv_n;
+      if (++kv_chunk == nc) {
+        kv_chunk = 0;
+        kv_item += gridDim.x;
+      }
+    }
+  };
+  int kv_used = 0;  // K/V stages this warpgroup has taken
+  int q_n = 0;      // Q chunks this warpgroup has taken
+  issue_kv(0);
+  mbar_wait(p_full, 0);
+
+  for (long long item = blockIdx.x; item < items; item += gridDim.x) {
+    const int h = (int)(item % HEADS), row0 = (int)(item / HEADS * L);
+    const int nq = wg < nc ? (nc - 1 - wg) / NWG + 1 : 0;  // this warpgroup's Q chunks
+    auto issue_q = [&](int k) {
+      if (k >= nq) return;
+      const int st = wg * Q_STAGES + (q_n + k) % Q_STAGES;
+      mbar_arrive_expect_tx(q_full + 8 * st, TILE, wg_leader);
+      tma_load_2d(base + Q_OFF + st * TILE, &qkv_map, q_full + 8 * st, h * DH,
+                  row0 + (wg + k * NWG) * LC, wg_leader);
+    };
+    __syncthreads();  // the last item's ctx tiles and Q stages are no longer read
+    for (int k = 0; k < Q_STAGES; ++k) issue_q(k);
+
+    // phase 1: ctx_s = phi_k^T [v | 1] over the features of this warpgroup
+    const uint32_t p_tile = base + P_OFF + wg * TILE;
+    float ctx[32], den[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 32; ++e) ctx[e] = 0.f;
+    for (int c = 0; c < nc; ++c) {
+      const int st = kv_used % KV_STAGES;
+      mbar_wait(kv_full + 8 * st, (kv_used / KV_STAGES) & 1);
+      const uint32_t kt = base + KV_OFF + st * 2 * TILE, vt = kt + TILE;
+      float d[32];
+#pragma unroll
+      for (int e = 0; e < 32; ++e) d[e] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        Wgmma<64>::ss(d, desc_sw128(p_tile + ks * 32), desc_sw128(kt + ks * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      uint32_t a[4][4];
+      features(a, d, kernel_eps, L - c * LC, t, den);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks)
+        Wgmma<64>::rs<1>(ctx, a[ks], desc_sw128_mn(vt + ks * 2048, TILE), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(kv_empty + 8 * st);
+      issue_kv(++kv_used);
+    }
+    // ctx_s -> bf16 [dh][feature] tile (the 128-byte swizzle), den -> den_s
+    unsigned char* ct = smem + CTX_OFF + wg * TILE;
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int f = 16 * wq + g + 8 * ((e >> 1) & 1), c = 8 * (e >> 2) + 2 * t + (e & 1);
+      *reinterpret_cast<bf16*>(ct + c * 128 + ((((f >> 3) ^ (c & 7)) << 4) | ((f & 7) << 1))) =
+          __float2bfloat16(ctx[e]);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float v = den[hh];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if (t == 0) den_s[64 * wg + 16 * wq + g + 8 * hh] = __bfloat162float(__float2bfloat16(v));
+    }
+    fence_proxy_async();
+    __syncthreads();
+
+    // phase 2: att = num[:, :dh] / max(num[:, dh], 1e-12), num = phi_q . ctx
+    for (int k = 0; k < nq; ++k) {
+      const int c = wg + k * NWG, st = wg * Q_STAGES + (q_n + k) % Q_STAGES;
+      mbar_wait(q_full + 8 * st, ((q_n + k) / Q_STAGES) & 1);
+      const uint32_t qt = base + Q_OFF + st * TILE;
+      float num[32], dq[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 32; ++e) num[e] = 0.f;
+      for (int s = 0; s < NWG; ++s) {
+        float d[32];
+#pragma unroll
+        for (int e = 0; e < 32; ++e) d[e] = 0.f;
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          Wgmma<64>::ss(d, desc_sw128(qt + ks * 32), desc_sw128(base + P_OFF + s * TILE + ks * 32),
+                        1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        uint32_t a[4][4];
+        float unused[2] = {0.f, 0.f};
+        features(a, d, kernel_eps, LC, t, unused);
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[ks][kk]);
+            const float* dn = den_s + 64 * s + 16 * ks + 8 * (kk >> 1) + 2 * t;
+            dq[kk & 1] += __low2float(v) * dn[0] + __high2float(v) * dn[1];
+          }
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < 4; ++ks)
+          Wgmma<64>::rs<0>(num, a[ks], desc_sw128(base + CTX_OFF + s * TILE + ks * 32), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float v = dq[hh];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        const float den_row = fmaxf(v, 1e-12f);
+        const int l = c * LC + 16 * wq + g + 8 * hh;
+        if (l < L) {
+          bf16* o = att + (long long)(row0 + l) * HD + h * DH + 2 * t;
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+                num[4 * n + 2 * hh] / den_row, num[4 * n + 2 * hh + 1] / den_row);
+        }
+      }
+      named_barrier(1 + wg, 128);  // the warpgroup is done with this Q stage
+      issue_q(k + Q_STAGES);
+    }
+    q_n += nq;
+  }
+}
+
+cudaError_t launch(const bf16* qkv, const bf16* proj, float kernel_eps, bf16* att, long long P,
+                   int L, cudaStream_t st) {
+  CUtensorMap qkv_map, p_map;
+  const cuuint64_t qdims[2] = {3 * HD, (cuuint64_t)(P * L)}, qstrides[1] = {3 * HD * 2};
+  const cuuint64_t pdims[2] = {DH, MF}, pstrides[1] = {DH * 2};
+  const cuuint32_t box[2] = {64, 64};
+  if (P * L > 0x7fffffffLL) return cudaErrorInvalidValue;
+  cudaError_t err = encode_bf16_sw128(&qkv_map, qkv, 2, qdims, qstrides, box);
+  if (err != cudaSuccess) return err;
+  if ((err = encode_bf16_sw128(&p_map, proj, 2, pdims, pstrides, box)) != cudaSuccess) return err;
+  if ((err = set_smem(favor_wgmma_kernel, SMEM)) != cudaSuccess) return err;
+  const long long items = P * HEADS;
+  const unsigned grid = (unsigned)(items < sm_count() ? items : sm_count());
+  favor_wgmma_kernel<<<grid, NT, SMEM, st>>>(qkv_map, p_map, kernel_eps, att, L, items);
+  return cudaGetLastError();
+}
+
+}  // namespace favor_wg
 
 // ------------------------------------------------------- 3. out projection
 constexpr int KC3 = 64;
@@ -222,7 +465,8 @@ constexpr size_t out_smem() {
 
 template <typename T>
 __global__ void __launch_bounds__(NTHREADS)
-out_kernel(const T* __restrict__ att, const T* __restrict__ wo, const float* __restrict__ bo,
+performer_out_kernel(const T* __restrict__ att, const T* __restrict__ wo,
+                     const float* __restrict__ bo,
            const T* __restrict__ x, T* __restrict__ out, Rows rows_, long long M, int residual) {
   using G = GemmCfg<T>;
   constexpr int NT = D / (8 * G::WC);
@@ -261,19 +505,25 @@ cudaError_t launch(const void* x, const float* gamma, const float* beta, float l
   const long long M = P * rows_.L;
   const unsigned gm = (unsigned)((M + G::BM - 1) / G::BM);
   cudaError_t err;
-  if ((err = set_smem(proj_kernel<T>, proj_smem<T>())) != cudaSuccess) return err;
-  if ((err = set_smem(favor_kernel<T>, FavorCfg<T>::SMEM)) != cudaSuccess) return err;
-  if ((err = set_smem(out_kernel<T>, out_smem<T>())) != cudaSuccess) return err;
+  if ((err = set_smem(performer_proj_kernel<T>, proj_smem<T>())) != cudaSuccess) return err;
+  if ((err = set_smem(performer_out_kernel<T>, out_smem<T>())) != cudaSuccess) return err;
   const T* xt = static_cast<const T*>(x);
-  proj_kernel<T><<<gm, NTHREADS, proj_smem<T>(), st>>>(
+  performer_proj_kernel<T><<<gm, NTHREADS, proj_smem<T>(), st>>>(
       xt, rows_, gamma, beta, ln_eps, static_cast<const T*>(wq), static_cast<const T*>(wk),
       static_cast<const T*>(wv), scale, static_cast<T*>(qkv), M);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  favor_kernel<T><<<dim3(HEADS, (unsigned)P), NTHREADS, FavorCfg<T>::SMEM, st>>>(
-      static_cast<const T*>(qkv), static_cast<const T*>(proj), kernel_eps,
-      static_cast<T*>(attn), rows_.L);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  out_kernel<T><<<gm, NTHREADS, out_smem<T>(), st>>>(
+  if constexpr (sizeof(T) == 2) {
+    err = favor_wg::launch(static_cast<const bf16*>(qkv), static_cast<const bf16*>(proj),
+                           kernel_eps, static_cast<bf16*>(attn), P, rows_.L, st);
+  } else {
+    if ((err = set_smem(favor_f32_kernel<T>, FavorCfg<T>::SMEM)) != cudaSuccess) return err;
+    favor_f32_kernel<T><<<dim3(HEADS, (unsigned)P), NTHREADS, FavorCfg<T>::SMEM, st>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(proj), kernel_eps,
+        static_cast<T*>(attn), rows_.L);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return err;
+  performer_out_kernel<T><<<gm, NTHREADS, out_smem<T>(), st>>>(
       static_cast<const T*>(attn), static_cast<const T*>(wo), bo, xt, static_cast<T*>(out),
       rows_, M, gamma != nullptr);
   return cudaGetLastError();

@@ -1,4 +1,4 @@
-// Tied row attention, forward: a flash-style kernel for Hopper (sm_90a).
+// Tied row attention, forward (kernel A), for Hopper (sm_90a).
 //
 // Replaces rosettafold_tpu/ops/pallas/tied_attention.py `_forward`
 // (the pl.pallas_call at :99, public entry `tied_flash_attention` :134).
@@ -11,27 +11,31 @@
 // Layouts: q, k (BH, L, ND); v, out (BH, L, NDv); lse (BH, L) float32.
 // q already carries the position-wise weights and 1/sqrt(d).
 //
-// What bounds it on this card: operations. Each (i, j) logit costs ND
-// multiply-adds and each probability NDv more, against O(L * ND) bytes read
-// per row tile; at ND = 2048 (N = 64 MSA rows) the contraction is the cost.
-// A Q tile of 64 x 2048 bf16 alone (256 KB) would not fit the 227 KB of
-// shared memory a block may use, so neither kernel holds a full row:
-//  * the contraction runs in chunks of q and k staged through shared memory,
-//    so any ND fits;
-//  * the output width is split across the grid (blockIdx.z) with the logits
-//    recomputed per split, so each thread keeps its accumulators in registers;
-//  * online softmax over key tiles keeps the L x L map out of device memory;
-//    ragged L is masked inside the kernel (no padding to 128).
-// bfloat16 (the serving trunk) runs both products on the tensor cores with
-// mma.sync m16n8k16 (bf16 operands, float32 accumulation); float32 runs on the
-// CUDA cores, so its products stay exact float32. The probabilities are
-// rounded to the value dtype before the P.V product, as the TPU kernel does.
-// wgmma/TMA tiling and a resident Q tile are later work.
+// What bounds it on this card: bytes at the batch shape (BH = 48, L = 128,
+// ND = NDv = 256: 12.6 MB in and out against 0.8 GFLOP), operations at the
+// long requests' (L = 1100, ND = NDv = 1024 or L = 512, ND = 2048: 26-60
+// GFLOP against 0.1 GB). Online softmax in one pass would hold a 64-row q
+// tile (256 KB at ND = 2048) or restage it per key step, and split NDv over
+// blocks that each recompute every logit (8x at ND = 2048). So bfloat16 (the
+// serving trunk) runs two launches on wgmma (see the bfloat16 section):
+//  * the logits once, a batched GEMM q . k^T into float32 scratch, whose
+//    blocks each stage their q rows once per 64 x BN tile;
+//  * the softmax and P . V, whose blocks split NDv and recompute only the
+//    exponentials of the logits they read back from L2;
+// and one launch where a block can hold a whole row of logits and every
+// output column (L <= 128, 64 < NDv <= 256: the batch shape), which keeps the
+// logits in registers and P in shared memory.
+// The scratch (4 L^2 bytes per (b, head): 58 MB at L = 1100, 12 heads) is
+// written once and read once per column block. Ragged L is masked inside
+// the kernels (no padding to 128). float32 runs on the CUDA cores with
+// online softmax, so its products stay exact float32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -181,287 +185,531 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* ou
 }
 
 // --------------------------------------------------------------- bfloat16 --
-// Tensor-core kernel. 8 warps as 2 (query rows) x 4 (output columns): warp
-// (rg, cg) computes the logits of rows rg*16.., keys cg*16.. of each 32 x 64
-// tile, and accumulates out rows rg*16.., columns c0 + cg*64.. (8 m16n8
-// accumulators, 32 registers). Shared-memory rows are padded by 8 bf16 so
-// that the 32-bit fragment loads of a warp hit 32 distinct banks. The q and k
-// chunks are double-buffered with cp.async, so the next chunk's loads are in
-// flight while the tensor cores work on this one. Each chunk's mma sums start
-// from zero and are added to the logits in float32, so the tensor cores'
-// internal accumulation never carries the whole ND-long sum.
+// Two launches on wgmma (one at L <= 128, 64 < NDv <= 256: 3. below), each fed by
+// TMA through a ring of full / empty mbarriers; one warpgroup (128 threads)
+// a block.
+//  1. tied_logits_kernel<BN>: s = q . k^T in float32 into scratch (BH, L,
+//     LS), LS = L rounded up to 4. A block owns 64 query rows x BN keys and
+//     streams q and k in 64-wide chunks of ND (4 stages), m64nBNk16 with both
+//     operands in shared memory, accumulated in float32 registers over the
+//     whole ND. Every logit is computed once, whatever NDv. The epilogue
+//     also writes each row's (max, sum of exp(s - max)) over the tile's keys.
+//  2. tied_pv_kernel<BC>: a block owns 64 query rows x BC output columns. It
+//     combines the tiles' statistics into each row's max m and sum l of
+//     exp(s - m), then walks the keys in chunks of 64: p =
+//     bf16(exp(s - m)) goes from the logits straight into the wgmma A
+//     fragments (registers; the next chunk's logits are loaded while this
+//     chunk's products run), V arrives by TMA as an MN-major B tile (3
+//     stages), m64nBCk16; out = acc * (1 / l) in bf16 through shared memory
+//     as 16-byte vectors, lse = m + log(l).
+// The probabilities are rounded exactly where the plain version rounds them:
+// exp(s - m) with the row's final max, before P.V; the denominator sums the
+// unrounded values (tile by tile, rescaled to the final max). BN and BC are
+// 128 and 256 where the grid keeps two blocks on each SM, else 64 and 128
+// (64 at NDv <= 64), so the batch shape (BH = 48, L = 128) runs 192 blocks
+// of each kind on the 132 SMs. TMA's zero fill covers the ragged ends of L,
+// ND and NDv; rows and keys past L are masked, columns past NDv are not
+// stored. The bf16 path needs ND, NDv % 8 == 0 and 16-byte aligned q, k, v
+// (the TMA row stride); ND = NDv = N * 32 on the model path.
 
-constexpr int B_BQ = 32;           // query rows per block
-constexpr int B_BK = 64;           // keys per online-softmax step
-constexpr int B_DK = 128;          // contraction chunk
-constexpr int B_DV = 256;          // output columns per block
-constexpr int B_NT = 256;          // threads per block
-constexpr int QK_LD = B_DK + 8;    // row stride of Qs, Ks (bf16)
-constexpr int P_LD = B_BK + 8;     // row stride of Ps, Vt (bf16)
-constexpr int S_LD = B_BK + 4;     // row stride of Ss (float)
+namespace tma_wg {
 
-constexpr int QK_BUF = (B_BQ + B_BK) * QK_LD;  // one q chunk + one k chunk (bf16)
-constexpr size_t BF16_SMEM =
-    sizeof(__nv_bfloat16) * (2 * QK_BUF + B_BQ * P_LD + B_DV * P_LD) +
-    sizeof(float) * (B_BQ * S_LD + 3 * B_BQ);
+using namespace rf::hopper;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+constexpr int NT = 128;       // one warpgroup
+constexpr int BM = 64;        // query rows a block
+constexpr int KC = 64;        // ND chunk and key chunk: one 128-byte row of bf16
+constexpr int S_STAGES = 4;   // logits ring
+constexpr int V_STAGES = 3;   // P.V ring
+constexpr int TILE = KC * 128;  // one 64-row x 64-column box (bytes)
+
+constexpr size_t logits_smem(int BN) { return 1024 + S_STAGES * (BM + BN) * 128 + 16 * S_STAGES; }
+constexpr size_t pv_smem(int BC) { return 1024 + V_STAGES * (BC / 64) * TILE + 16 * V_STAGES; }
+constexpr size_t fused_smem(int BC) {
+  return 1024 + S_STAGES * (BM + 128) * 128 + 2 * (BC / 64) * TILE + 2 * TILE + 4 * BM * 4 +
+         16 * S_STAGES + 8;
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
 }
 
-// A fragment (16 x 16, row-major, leading dimension ld) at tile origin t
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const __nv_bfloat16* t, int ld,
-                                       int g, int tg) {
-  a[0] = ld32(t + g * ld + 2 * tg);
-  a[1] = ld32(t + (g + 8) * ld + 2 * tg);
-  a[2] = ld32(t + g * ld + 2 * tg + 8);
-  a[3] = ld32(t + (g + 8) * ld + 2 * tg + 8);
-}
-
-// 16 bytes global -> shared without a register round trip; src_bytes = 0
-// writes zeros (src must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [r0, r0 + ROWS) x columns [d0, d0 + B_DK) of a (., ld) bf16 matrix into
-// shared memory, zero outside (nrows, ncols): cp.async where rows are 16-byte
-// aligned (vec), plain element loads otherwise
-template <int ROWS>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           int r0, int nrows, int d0, int ncols, int ld,
-                                           bool vec) {
-  constexpr int CHUNKS = B_DK / 8;
-  for (int e = threadIdx.x; e < ROWS * CHUNKS; e += B_NT) {
-    const int r = e / CHUNKS, c = (e % CHUNKS) * 8;
-    const int gr = r0 + r, gc = d0 + c;
-    __nv_bfloat16* d = dst + r * QK_LD + c;
-    const __nv_bfloat16* p = src + (size_t)gr * ld + gc;
-    if (vec) {  // ncols % 8 == 0: a chunk is wholly inside or wholly outside
-      const bool inside = gr < nrows && gc < ncols;
-      cp_async16(d, inside ? p : src, inside ? 16 : 0);
-    } else {
+// acc += q . k^T over the nch chunks of ND in the ring (stage c % S_STAGES at
+// base + stage * (BM + BN) * 128: 64 q rows, then BN k rows, of which this
+// warpgroup multiplies the N from row k_row on; full / empty barriers at
+// bars): one chunk's products run while the next chunk's are issued; a stage
+// is released, and its next chunk issued, once its products are done
+template <int N, int BN, typename Issue>
+__device__ __forceinline__ void logits_loop(float (&acc)[N / 2], uint32_t base, uint32_t bars,
+                                            int nch, int k_row, int lane, Issue& issue) {
+  constexpr int STAGE = (BM + BN) * 128;
+  for (int c = 0; c < nch; ++c) {
+    const int st = c % S_STAGES;
+    mbar_wait(bars + 8 * st, (c / S_STAGES) & 1);
+    const uint32_t qt = base + st * STAGE, kt = qt + (BM + k_row) * 128;
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        d[i] = (gr < nrows && gc + i < ncols) ? p[i] : __float2bfloat16(0.f);
+    for (int ks = 0; ks < KC / 16; ++ks)
+      Wgmma<N>::ss(acc, desc_sw128(qt + ks * 32), desc_sw128(kt + ks * 32), 1);
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk c - 1's products are done
+    if (c > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bars + 8 * (S_STAGES + (c - 1) % S_STAGES));
+      if (c - 1 + S_STAGES < nch) issue(c - 1 + S_STAGES);
     }
+  }
+  wgmma_wait<0>();
+}
+
+// A warpgroup's 64 x N slice of the output (accumulator o, row half h
+// scaled by inv[h]) into columns col .. col + N of a staging tile in shared
+// memory (`tile`, row stride LDO, free, 16-byte aligned); then the block's
+// THREADS store whole 16-byte vectors of its rows < L and of the tile's
+// `cols` columns < NDv, from output column c0 on
+template <int N, int LDO, int THREADS>
+__device__ __forceinline__ void store_out(__nv_bfloat16* tile, const float (&o)[N / 2],
+                                          const float (&inv)[2], int col,
+                                          __nv_bfloat16* __restrict__ out, int bh, int i0,
+                                          int c0, int cols, int L, int NDv) {
+  const int lane = threadIdx.x & 31, t = lane & 3;
+  const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      *reinterpret_cast<__nv_bfloat162*>(tile + (r + 8 * h) * LDO + col + 8 * n + 2 * t) =
+          __floats2bfloat162_rn(o[4 * n + 2 * h] * inv[h], o[4 * n + 2 * h + 1] * inv[h]);
+  __syncthreads();
+  const int nrows = min(BM, L - i0), vecs = min(cols, NDv - c0) / 8;
+  for (int e = threadIdx.x; e < nrows * vecs; e += THREADS) {
+    const int row = e / vecs, c = (e % vecs) * 8;
+    *reinterpret_cast<uint4*>(out + ((size_t)bh * L + i0 + row) * NDv + c0 + c) =
+        *reinterpret_cast<const uint4*>(tile + row * LDO + c);
   }
 }
 
-__global__ void __launch_bounds__(B_NT)
-tied_fwd_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-              const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-              float* __restrict__ lse, int L, int ND, int NDv, bool vec_qk, bool vec_v) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  // two buffers of [B_BQ][QK_LD] q rows followed by [B_BK][QK_LD] k rows
-  __nv_bfloat16* QKs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Ps = QKs + 2 * QK_BUF;                             // [B_BQ][P_LD]
-  __nv_bfloat16* Vt = Ps + B_BQ * P_LD;        // [B_DV][P_LD]: V tile transposed
-  float* Ss = reinterpret_cast<float*>(Vt + B_DV * P_LD);           // [B_BQ][S_LD]
-  float* m_s = Ss + B_BQ * S_LD;  // running max
-  float* l_s = m_s + B_BQ;        // running denominator
-  float* a_s = l_s + B_BQ;        // rescale factor of this step
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, tg = lane & 3;  // mma fragment row group, thread in group
-  const int rg = warp >> 2, cg = warp & 3;
-  const int q0 = blockIdx.x * B_BQ;
-  const int bh = blockIdx.y;
-  const int c0 = blockIdx.z * B_DV;
-  const __nv_bfloat16* qb = q + (size_t)bh * L * ND;
-  const __nv_bfloat16* kb = k + (size_t)bh * L * ND;
-  const __nv_bfloat16* vb = v + (size_t)bh * L * NDv;
-
-  if (tid < B_BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+template <int BN>
+__global__ void __launch_bounds__(NT)
+tied_logits_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap, float* __restrict__ s,
+                   float2* __restrict__ stats, int L, int LS, int ND) {
+  constexpr int STAGE = (BM + BN) * 128;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = smem_u32(align1024(smem_raw));
+  const uint32_t bars = base + S_STAGES * STAGE;  // full[S_STAGES], empty[S_STAGES]
+  const int i0 = blockIdx.x * BM, j0 = blockIdx.y * BN, bh = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < S_STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (S_STAGES + st), NT / 32);
+    }
+    fence_mbar_init();
   }
   __syncthreads();
-  float acc[8][4];
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
 
-  for (int j0 = 0; j0 < L; j0 += B_BK) {
-    // logits: warp (rg, cg) -> rows rg*16.., keys cg*16.. (two n8 tiles)
-    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    const int nchunks = (ND + B_DK - 1) / B_DK;
-    stage_rows<B_BQ>(QKs, qb, q0, L, 0, ND, ND, vec_qk);
-    stage_rows<B_BK>(QKs + B_BQ * QK_LD, kb, j0, L, 0, ND, ND, vec_qk);
-    cp_async_commit();
-    for (int ch = 0; ch < nchunks; ++ch) {
-      if (ch + 1 < nchunks) {  // prefetch the next chunk into the other buffer
-        __nv_bfloat16* nxt = QKs + ((ch + 1) & 1) * QK_BUF;
-        stage_rows<B_BQ>(nxt, qb, q0, L, (ch + 1) * B_DK, ND, ND, vec_qk);
-        stage_rows<B_BK>(nxt + B_BQ * QK_LD, kb, j0, L, (ch + 1) * B_DK, ND, ND, vec_qk);
-        cp_async_commit();
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const __nv_bfloat16* Qs = QKs + (ch & 1) * QK_BUF;
-      const __nv_bfloat16* Ks = Qs + B_BQ * QK_LD;
-      float t[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-#pragma unroll
-      for (int kk = 0; kk < B_DK; kk += 16) {
-        uint32_t a[4];
-        load_a(a, Qs + rg * 16 * QK_LD + kk, QK_LD, g, tg);
-#pragma unroll
-        for (int n = 0; n < 2; ++n) {
-          const __nv_bfloat16* kt = Ks + (cg * 16 + n * 8 + g) * QK_LD + kk + 2 * tg;
-          mma_bf16(t[n], a, ld32(kt), ld32(kt + 8));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[n][i] += t[n][i];
-      __syncthreads();  // the buffer is refilled two chunks on
-    }
-#pragma unroll
-    for (int n = 0; n < 2; ++n) {
-      const int col = cg * 16 + n * 8 + 2 * tg;
-      float* srow = Ss + (rg * 16 + g) * S_LD + col;
-      srow[0] = s[n][0];
-      srow[1] = s[n][1];
-      srow[8 * S_LD] = s[n][2];
-      srow[8 * S_LD + 1] = s[n][3];
-    }
+  const int nch = (ND + KC - 1) / KC;
+  // chunk c into stage c % S_STAGES once its last use is released; every
+  // thread runs this in step, thread 0 alone issues
+  auto issue = [&](int c) {
+    const int st = c % S_STAGES;
+    mbar_wait(bars + 8 * (S_STAGES + st), ((c / S_STAGES) & 1) ^ 1);
+    const uint32_t dst = base + st * STAGE, full = bars + 8 * st;
+    mbar_arrive_expect_tx(full, STAGE, leader);
+    tma_load_3d(dst, &qmap, full, c * KC, i0, bh, leader);
+    tma_load_3d(dst + BM * 128, &kmap, full, c * KC, j0, bh, leader);
+  };
+  for (int c = 0; c < nch && c < S_STAGES; ++c) issue(c);
 
-    // stage V^T for this step: Vt[c][j] = v[j0 + j, c0 + c]; a warp's lanes
-    // take consecutive keys, so the transposed stores do not collide
-    for (int e = tid; e < B_BK * (B_DV / 8); e += B_NT) {
-      const int j = e % B_BK, c = (e / B_BK) * 8;
-      const int gr = j0 + j, gc = c0 + c;
-      __align__(16) __nv_bfloat16 tmp[8];
-      if (gr < L && vec_v && gc + 8 <= NDv) {
-        *reinterpret_cast<uint4*>(tmp) =
-            *reinterpret_cast<const uint4*>(vb + (size_t)gr * NDv + gc);
-      } else {
+  float acc[BN / 2];
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
-          tmp[i] = (gr < L && gc + i < NDv) ? vb[(size_t)gr * NDv + gc + i]
-                                            : __float2bfloat16(0.f);
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c + i) * P_LD + j] = tmp[i];
-    }
-    __syncthreads();
+  for (int e = 0; e < BN / 2; ++e) acc[e] = 0.f;
+  logits_loop<BN, BN>(acc, base, bars, nch, 0, lane, issue);
 
-    {  // online softmax: 8 threads per query row, 8 keys each
-      const int r = tid >> 3, part = tid & 7;
-      const float m_old = m_s[r];
-      float sv[8], mx = -INFINITY;
+  const int t = lane & 3, r = i0 + warp * 16 + (lane >> 2), cc = j0 + 2 * t;
+  float* sb = s + (size_t)bh * L * LS;
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int c = part * 8 + i;
-        sv[i] = (j0 + c < L) ? Ss[r * S_LD + c] : -INFINITY;
-        mx = fmaxf(mx, sv[i]);
-      }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      mx = fmaxf(mx, m_old);  // finite: key j0 < L is always valid
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float p = expf(sv[i] - mx);
-        sum += p;
-        Ps[r * P_LD + part * 8 + i] = __float2bfloat16(p);
-      }
-#pragma unroll
-      for (int o = 4; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      __syncwarp();
-      if (part == 0) {
-        const float alpha = expf(m_old - mx);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = mx;
-        a_s[r] = alpha;
-      }
+  for (int n = 0; n < BN / 8; ++n) {
+    const int col = cc + 8 * n;  // even; col + 1 < LS
+    if (col < L) {
+      if (r < L)
+        *reinterpret_cast<float2*>(sb + (size_t)r * LS + col) =
+            make_float2(acc[4 * n], acc[4 * n + 1]);
+      if (r + 8 < L)
+        *reinterpret_cast<float2*>(sb + (size_t)(r + 8) * LS + col) =
+            make_float2(acc[4 * n + 2], acc[4 * n + 3]);
     }
-    __syncthreads();
-
-    // out += P . V on rows rg*16.., columns cg*64.. of this block's split
-    const float a_lo = a_s[rg * 16 + g], a_hi = a_s[rg * 16 + g + 8];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= a_lo;
-      acc[n][1] *= a_lo;
-      acc[n][2] *= a_hi;
-      acc[n][3] *= a_hi;
-    }
-#pragma unroll
-    for (int kk = 0; kk < B_BK; kk += 16) {
-      uint32_t a[4];
-      load_a(a, Ps + rg * 16 * P_LD + kk, P_LD, g, tg);
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vt = Vt + (cg * 64 + n * 8 + g) * P_LD + kk + 2 * tg;
-        mma_bf16(acc[n], a, ld32(vt), ld32(vt + 8));
-      }
-    }
-    __syncthreads();
   }
-
-  const int r_lo = rg * 16 + g;
+  // the tile's softmax statistics per row: (max, sum of exp(s - max)) over
+  // its valid keys (at least key j0); a row's BN keys lie in one quad
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int r = r_lo + 8 * h, gr = q0 + r;
-    if (gr >= L) continue;
-    const float inv = 1.f / l_s[r];
-    __nv_bfloat16* orow = out + ((size_t)bh * L + gr) * NDv;
+    float mx = -INFINITY, sum = 0.f;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int gc = c0 + cg * 64 + n * 8 + 2 * tg;
-      if (gc < NDv) orow[gc] = __float2bfloat16(acc[n][2 * h] * inv);
-      if (gc + 1 < NDv) orow[gc + 1] = __float2bfloat16(acc[n][2 * h + 1] * inv);
-    }
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (cc + 8 * n + e < L) mx = fmaxf(mx, acc[4 * n + 2 * h + e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (cc + 8 * n + e < L) sum += expf(acc[4 * n + 2 * h + e] - mx);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = r + 8 * h;
+    if (t == 0 && row < L)
+      stats[((size_t)bh * L + row) * gridDim.y + blockIdx.y] = make_float2(mx, sum);
   }
-  if (blockIdx.z == 0 && tid < B_BQ && q0 + tid < L)
-    lse[(size_t)bh * L + q0 + tid] = m_s[tid] + logf(l_s[tid]);
 }
 
-cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                        const __nv_bfloat16* v, __nv_bfloat16* out, float* lse, int BH,
-                        int L, int ND, int NDv, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      tied_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)BF16_SMEM);
+template <int BC>
+__global__ void __launch_bounds__(NT)
+tied_pv_kernel(const float* __restrict__ s, const float2* __restrict__ stats, int tiles,
+               const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+               float* __restrict__ lse, int L, int LS, int NDv) {
+  constexpr int BOXES = BC / 64, STAGE = BOXES * TILE;
+  static_assert(BM * (BC + 8) * 2 <= V_STAGES * STAGE, "the output tile fits the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t bars = base + V_STAGES * STAGE;  // full[V_STAGES], empty[V_STAGES]
+  const int i0 = blockIdx.x * BM, c0 = blockIdx.y * BC, bh = blockIdx.z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < V_STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (V_STAGES + st), NT / 32);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int nkc = (L + KC - 1) / KC;
+  // the boxes of this block's columns that hold any column < NDv; the rest
+  // are left unloaded (their products land in columns that are not stored)
+  const int boxes = min(BOXES, (NDv - c0 + 63) / 64);
+  auto issue = [&](int c) {
+    const int st = c % V_STAGES;
+    mbar_wait(bars + 8 * (V_STAGES + st), ((c / V_STAGES) & 1) ^ 1);
+    const uint32_t dst = base + st * STAGE, full = bars + 8 * st;
+    mbar_arrive_expect_tx(full, boxes * TILE, leader);
+    for (int b = 0; b < boxes; ++b)
+      tma_load_3d(dst + b * TILE, &vmap, full, c0 + 64 * b, c * KC, bh, leader);
+  };
+  for (int c = 0; c < nkc && c < V_STAGES; ++c) issue(c);
+
+  // this thread's A fragment rows (lo, hi) and columns 2t, 2t + 1 (+ 8);
+  // each row's max m and sum l of exp(s - m) from the logits tiles' own
+  const int g = lane >> 2, t = lane & 3;
+  const int rows[2] = {i0 + warp * 16 + g, i0 + warp * 16 + g + 8};
+  float ms[2] = {0.f, 0.f}, ls[2] = {1.f, 1.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (rows[h] < L) {
+      const float2* st = stats + ((size_t)bh * L + rows[h]) * tiles;
+      float m = -INFINITY, l = 0.f;
+      for (int i = 0; i < tiles; ++i) m = fmaxf(m, st[i].x);
+      for (int i = 0; i < tiles; ++i) l += st[i].y * expf(st[i].x - m);
+      ms[h] = m;
+      ls[h] = l;
+    }
+  const float* sb = s + (size_t)bh * L * LS;
+  // logits of chunk c at register k (row half k & 1, column half k >> 1)
+  float2 sv[KC / 16][4];
+  auto load = [&](int c) {
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int row = rows[k & 1], j = c * KC + 16 * ks + 8 * (k >> 1) + 2 * t;
+        sv[ks][k] = (row < L && j < L)
+                        ? *reinterpret_cast<const float2*>(sb + (size_t)row * LS + j)
+                        : make_float2(-INFINITY, -INFINITY);
+      }
+  };
+  load(0);
+
+  float acc[BC / 2];
+#pragma unroll
+  for (int e = 0; e < BC / 2; ++e) acc[e] = 0.f;
+  for (int c = 0; c < nkc; ++c) {
+    uint32_t a[KC / 16][4];
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = c * KC + 16 * ks + 8 * (k >> 1) + 2 * t;
+        const float m = ms[k & 1];
+        a[ks][k] = pack_bf16(j < L ? expf(sv[ks][k].x - m) : 0.f,
+                             j + 1 < L ? expf(sv[ks][k].y - m) : 0.f);
+      }
+    if (c + 1 < nkc) load(c + 1);
+    const int st = c % V_STAGES;
+    mbar_wait(bars + 8 * st, (c / V_STAGES) & 1);
+    const uint32_t vt = base + st * STAGE;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < KC / 16; ++ks)
+      Wgmma<BC>::template rs<1>(acc, a[ks], desc_sw128_mn(vt + ks * 2048, TILE), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bars + 8 * (V_STAGES + st));
+    if (c + V_STAGES < nkc) issue(c + V_STAGES);
+  }
+
+  if (blockIdx.y == 0 && t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (rows[h] < L) lse[(size_t)bh * L + rows[h]] = ms[h] + logf(ls[h]);
+  // through the ring's shared memory, free since the last chunk
+  const float inv[2] = {1.f / ls[0], 1.f / ls[1]};
+  store_out<BC, BC + 8, NT>(reinterpret_cast<__nv_bfloat16*>(smem), acc, inv, 0, out, bh, i0, c0,
+                            BC, L, NDv);
+}
+
+// 3. tied_fused_kernel<BC>: L <= 128 and 64 < NDv <= BC <= 256 in one launch.
+//    A block of two warpgroups owns 64 query rows, every key and every
+//    output column. Warpgroup w takes keys 64w .. 64w + 63 of the logits
+//    (m64n64k16 over ND; q and k fed as in 1., one ring for both) and output
+//    columns w BC / 2 .. of P.V. The row statistics are combined through
+//    shared memory; each warpgroup writes its bf16 probabilities there as
+//    half of P.V's A operand (K-major, swizzled), so both multiply the whole
+//    P by their half of V (m64n(BC/2)k16, both operands in shared memory; V,
+//    L x BC, arrives by TMA behind the first q and k chunks). The output tile
+//    leaves as 16-byte vectors. Each logit is computed once.
+constexpr int NT2 = 2 * NT;
+
+template <int BC>
+__global__ void __launch_bounds__(NT2)
+tied_fused_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                  float* __restrict__ lse, int L, int ND, int NDv) {
+  constexpr int BN = 128, STAGE = (BM + BN) * 128, BOXES = BC / 64, HALF = BC / 2;
+  constexpr int V_OFF = S_STAGES * STAGE, P_OFF = V_OFF + 2 * BOXES * TILE;
+  constexpr int RED_OFF = P_OFF + 2 * TILE, BAR_OFF = RED_OFF + 4 * BM * 4;
+  static_assert(BM * (BC + 8) * 2 <= V_OFF, "the output tile fits the ring");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const uint32_t base = smem_u32(smem), v_tiles = base + V_OFF, p_tiles = base + P_OFF;
+  float* red = reinterpret_cast<float*>(smem + RED_OFF);  // [half][max, sum][row]
+  const uint32_t bars = base + BAR_OFF, v_full = bars + 16 * S_STAGES;
+  const int i0 = blockIdx.x * BM, bh = blockIdx.z;
+  const int lane = threadIdx.x & 31, t = lane & 3, wg = threadIdx.x / NT;
+  const int r = ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);  // rows r, r + 8 of the tile
+  const uint32_t leader = threadIdx.x == 0;
+  if (leader) {
+    for (int st = 0; st < S_STAGES; ++st) {
+      mbar_init(bars + 8 * st, 1);
+      mbar_init(bars + 8 * (S_STAGES + st), NT2 / 32);
+    }
+    mbar_init(v_full, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  const int nch = (ND + KC - 1) / KC;
+  auto issue = [&](int c) {
+    const int st = c % S_STAGES;
+    mbar_wait(bars + 8 * (S_STAGES + st), ((c / S_STAGES) & 1) ^ 1);
+    const uint32_t dst = base + st * STAGE, full = bars + 8 * st;
+    mbar_arrive_expect_tx(full, STAGE, leader);
+    tma_load_3d(dst, &qmap, full, c * KC, i0, bh, leader);
+    tma_load_3d(dst + BM * 128, &kmap, full, c * KC, 0, bh, leader);
+  };
+  for (int c = 0; c < nch && c < S_STAGES; ++c) issue(c);
+  // V after the first q, k chunks, which the products need first
+  const int nkc = (L + KC - 1) / KC, boxes = min(BOXES, (NDv + 63) / 64);
+  mbar_arrive_expect_tx(v_full, nkc * boxes * TILE, leader);
+  for (int c = 0; c < nkc; ++c)
+    for (int b = 0; b < boxes; ++b)
+      tma_load_3d(v_tiles + (c * BOXES + b) * TILE, &vmap, v_full, 64 * b, c * KC, bh, leader);
+
+  float s[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e) s[e] = 0.f;
+  logits_loop<64, BN>(s, base, bars, nch, 64 * wg, lane, issue);
+
+  // softmax over the valid keys: each half's row max, then the row's; p =
+  // exp(s - m) rounded to bf16 into this half of P; l sums the unrounded p
+  const int k0 = 64 * wg + 2 * t;  // key of s[0] (s[4n + 2h + e]: key k0 + 8n + e)
+  float m[2], l[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (k0 + 8 * n + e < L) mx = fmaxf(mx, s[4 * n + 2 * h + e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    if (t == 0) red[(2 * wg) * BM + r + 8 * h] = mx;
+  }
+  named_barrier(1, NT2);
+  unsigned char* p_half = smem + P_OFF + wg * TILE;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    m[h] = fmaxf(red[row], red[2 * BM + row]);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        p[e] = k0 + 8 * n + e < L ? expf(s[4 * n + 2 * h + e] - m[h]) : 0.f;
+        sum += p[e];
+      }
+      const int kk = 8 * n + 2 * t;  // key within the half, even
+      *reinterpret_cast<uint32_t*>(p_half + row * 128 + ((((kk >> 3) ^ (row & 7)) << 4) |
+                                                         ((kk & 7) << 1))) = pack_bf16(p[0], p[1]);
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    if (t == 0) red[(2 * wg + 1) * BM + row] = sum;
+  }
+  fence_proxy_async();
+  named_barrier(1, NT2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = red[BM + r + 8 * h] + red[3 * BM + r + 8 * h];
+
+  float o[HALF / 2];
+#pragma unroll
+  for (int e = 0; e < HALF / 2; ++e) o[e] = 0.f;
+  mbar_wait(v_full, 0);
+  wgmma_fence();
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks)
+    if (16 * ks < L)
+      Wgmma<HALF>::template ss<1>(
+          o, desc_sw128(p_tiles + (ks / 4) * TILE + (ks % 4) * 32),
+          desc_sw128_mn(v_tiles + ((ks / 4) * BOXES + wg * BOXES / 2) * TILE + (ks % 4) * 2048,
+                        TILE),
+          1);
+  wgmma_commit();
+  wgmma_wait<0>();
+
+  if (wg == 0 && t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (i0 + r + 8 * h < L) lse[(size_t)bh * L + i0 + r + 8 * h] = m[h] + logf(l[h]);
+  // through the ring's shared memory, free since the logits
+  const float inv[2] = {1.f / l[0], 1.f / l[1]};
+  store_out<HALF, BC + 8, NT2>(reinterpret_cast<__nv_bfloat16*>(smem), o, inv, wg * HALF, out,
+                               bh, i0, 0, BC, L, NDv);
+}
+
+// the dynamic shared-memory size of a kernel, set once a process
+template <typename K>
+cudaError_t set_smem_once(K kernel, size_t bytes, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+template <int BN>
+cudaError_t launch_logits(const CUtensorMap& qmap, const CUtensorMap& kmap, float* s,
+                          float2* stats, int BH, int L, int LS, int ND, cudaStream_t st) {
+  static bool ready = false;
+  cudaError_t err = set_smem_once(tied_logits_kernel<BN>, logits_smem(BN), ready);
   if (err != cudaSuccess) return err;
-  // 16-byte vector loads need 16-byte aligned rows
-  const bool vec_qk = ND % 8 == 0 && ((uintptr_t)q | (uintptr_t)k) % 16 == 0;
-  const bool vec_v = NDv % 8 == 0 && (uintptr_t)v % 16 == 0;
-  dim3 grid((L + B_BQ - 1) / B_BQ, BH, (NDv + B_DV - 1) / B_DV);
-  tied_fwd_bf16<<<grid, B_NT, BF16_SMEM, st>>>(q, k, v, out, lse, L, ND, NDv, vec_qk,
-                                               vec_v);
+  dim3 grid((L + BM - 1) / BM, (L + BN - 1) / BN, BH);
+  tied_logits_kernel<BN><<<grid, NT, logits_smem(BN), st>>>(qmap, kmap, s, stats, L, LS, ND);
   return cudaGetLastError();
 }
+
+template <int BC>
+cudaError_t launch_pv(const float* s, const float2* stats, int tiles, const CUtensorMap& vmap,
+                      __nv_bfloat16* out, float* lse, int BH, int L, int LS, int NDv,
+                      cudaStream_t st) {
+  static bool ready = false;
+  cudaError_t err = set_smem_once(tied_pv_kernel<BC>, pv_smem(BC), ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + BM - 1) / BM, (NDv + BC - 1) / BC, BH);
+  tied_pv_kernel<BC><<<grid, NT, pv_smem(BC), st>>>(s, stats, tiles, vmap, out, lse, L, LS, NDv);
+  return cudaGetLastError();
+}
+
+// a bf16 (BH, L, D) tensor as a 3-D map of boxes of 64 features x `rows` rows
+cudaError_t map_rows(CUtensorMap* map, const void* t, int BH, int L, int D, int rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)BH};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)L * D * 2};
+  const cuuint32_t box[3] = {KC, (cuuint32_t)rows, 1};
+  return encode_bf16_sw128(map, t, 3, dims, strides, box);
+}
+
+template <int BC>
+cudaError_t launch_fused(const CUtensorMap& qmap, const CUtensorMap& kmap,
+                         const CUtensorMap& vmap, __nv_bfloat16* out, float* lse, int BH, int L,
+                         int ND, int NDv, cudaStream_t st) {
+  static bool ready = false;
+  cudaError_t err = set_smem_once(tied_fused_kernel<BC>, fused_smem(BC), ready);
+  if (err != cudaSuccess) return err;
+  dim3 grid((L + BM - 1) / BM, 1, BH);
+  tied_fused_kernel<BC><<<grid, NT2, fused_smem(BC), st>>>(qmap, kmap, vmap, out, lse, L, ND,
+                                                            NDv);
+  return cudaGetLastError();
+}
+
+// L <= 128 and 64 < NDv <= 256: one launch (tied_fused_kernel), no scratch. Else
+// scratch: the logits (BH, L, LS) and then each logits tile's row statistics
+// (BH, L, tiles) float2, tiles = ceil(L / BN) <= ceil(L / 64)
+cudaError_t launch_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                        __nv_bfloat16* out, float* lse, float* scratch, int BH, int L, int ND,
+                        int NDv, cudaStream_t st) {
+  if (ND % 8 || NDv % 8 || ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16)
+    return cudaErrorInvalidValue;
+  CUtensorMap qmap, kmap, vmap;
+  cudaError_t err;
+  if (L <= 128 && NDv > 64 && NDv <= 256) {
+    if ((err = map_rows(&qmap, q, BH, L, ND, BM)) != cudaSuccess) return err;
+    if ((err = map_rows(&kmap, k, BH, L, ND, 128)) != cudaSuccess) return err;
+    if ((err = map_rows(&vmap, v, BH, L, NDv, KC)) != cudaSuccess) return err;
+    if (NDv <= 128) return launch_fused<128>(qmap, kmap, vmap, out, lse, BH, L, ND, NDv, st);
+    return launch_fused<256>(qmap, kmap, vmap, out, lse, BH, L, ND, NDv, st);
+  }
+  if (scratch == nullptr) return cudaErrorInvalidValue;
+  const int LS = (L + 3) & ~3, nq = (L + BM - 1) / BM, full = 2 * sm_count();
+  const bool wide_n = (long long)nq * ((L + 127) / 128) * BH >= full;
+  const int tiles = wide_n ? (L + 127) / 128 : (L + 63) / 64;
+  float2* stats = reinterpret_cast<float2*>(scratch + (size_t)BH * L * LS);
+  const int BC = NDv <= 64 ? 64 : ((long long)nq * ((NDv + 255) / 256) * BH >= full ? 256 : 128);
+  if ((err = map_rows(&qmap, q, BH, L, ND, BM)) != cudaSuccess) return err;
+  if ((err = map_rows(&kmap, k, BH, L, ND, wide_n ? 128 : 64)) != cudaSuccess) return err;
+  if ((err = map_rows(&vmap, v, BH, L, NDv, KC)) != cudaSuccess) return err;
+  err = wide_n ? launch_logits<128>(qmap, kmap, scratch, stats, BH, L, LS, ND, st)
+               : launch_logits<64>(qmap, kmap, scratch, stats, BH, L, LS, ND, st);
+  if (err != cudaSuccess) return err;
+  if (BC == 256)
+    return launch_pv<256>(scratch, stats, tiles, vmap, out, lse, BH, L, LS, NDv, st);
+  if (BC == 128)
+    return launch_pv<128>(scratch, stats, tiles, vmap, out, lse, BH, L, LS, NDv, st);
+  return launch_pv<64>(scratch, stats, tiles, vmap, out, lse, BH, L, LS, NDv, st);
+}
+
+}  // namespace tma_wg
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16. Returns the cudaError_t of the launch.
+// dtype: 0 float32, 1 bfloat16. scratch: bfloat16's float32 scratch of
+// BH * L * (LS + 2 * ceil(L / 64)) values (LS = L rounded up to 4), null for
+// float32 and for bfloat16 at L <= 128, 64 < NDv <= 256 (one launch). Returns the
+// cudaError_t of the launch.
 int tied_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                       float* lse, int BH, int L, int ND, int NDv, int dtype,
+                       float* lse, float* scratch, int BH, int L, int ND, int NDv, int dtype,
                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
@@ -473,10 +721,10 @@ int tied_attention_fwd(const void* q, const void* k, const void* v, void* out,
                       : launch_f32<1>(qf, kf, vf, of, lse, BH, L, ND, NDv, st);
   }
   if (dtype == 1)
-    return launch_bf16(static_cast<const __nv_bfloat16*>(q),
-                       static_cast<const __nv_bfloat16*>(k),
-                       static_cast<const __nv_bfloat16*>(v),
-                       static_cast<__nv_bfloat16*>(out), lse, BH, L, ND, NDv, st);
+    return tma_wg::launch_bf16(static_cast<const __nv_bfloat16*>(q),
+                           static_cast<const __nv_bfloat16*>(k),
+                           static_cast<const __nv_bfloat16*>(v),
+                           static_cast<__nv_bfloat16*>(out), lse, scratch, BH, L, ND, NDv, st);
   return (int)cudaErrorInvalidValue;
 }
 

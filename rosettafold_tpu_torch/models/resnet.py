@@ -90,9 +90,11 @@ def affine_elu_rows(y, inv, shift, out_dtype, row_chunk, x=None):
     return out
 
 
-def hwio(conv: ConvNHWC, dtype):
-    """The conv's weight in the JAX layout (kh, kw, C_in, C_out), in dtype."""
-    return conv.weight.to(dtype).permute(2, 3, 1, 0)
+def hwio(conv: ConvNHWC):
+    """The conv's float32 weight in the JAX layout (kh, kw, C_in, C_out);
+    kernel F casts it to the activations' dtype for the products and keeps
+    its gradient in float32, as JAX's kernel path does."""
+    return conv.weight.permute(2, 3, 1, 0)
 
 
 def conv_block_kernels(block, x, dilation: int, row_chunk=None):
@@ -105,13 +107,13 @@ def conv_block_kernels(block, x, dilation: int, row_chunk=None):
     kernel F takes every L, with the same result."""
     ct = block.dtype or torch.float32
     x = x.to(ct).contiguous()
-    y1 = conv3x3_fused(x, hwio(block.conv1, ct), None, dilation, ct)
+    y1 = conv3x3_fused(x, hwio(block.conv1), None, dilation, ct)
     inv1, shift1 = instance_stats(y1, block.in1)
     if block.training and block.dropout.p > 0:
         a = F.elu(y1.float() * inv1[:, None, None, :] + shift1[:, None, None, :])
-        y2 = conv3x3_fused(block.dropout(a).to(ct), hwio(block.conv2, ct), None, dilation, ct)
+        y2 = conv3x3_fused(block.dropout(a).to(ct), hwio(block.conv2), None, dilation, ct)
     else:
-        y2 = conv3x3_fused(y1, hwio(block.conv2, ct), (inv1, shift1), dilation, ct)
+        y2 = conv3x3_fused(y1, hwio(block.conv2), (inv1, shift1), dilation, ct)
     inv2, shift2 = instance_stats(y2, block.in2)
     return affine_elu_rows(y2, inv2, shift2, ct, row_chunk, x)
 

@@ -2,14 +2,17 @@
 csrc/conv3x3.cu, its plain PyTorch version and its backward.
 
 Port of rosettafold_tpu/ops/pallas/conv3x3.py: x (B, H, W, C), w (3, 3, C,
-Co) HWIO in the JAX function's layout, pre None or (inv, shift), each (B, C)
-float32: the pre-op elu(x * inv + shift) applied to x before the conv. Out
-(B, H, W, Co) in `out_dtype`: x's dtype or float32. float32 and bfloat16;
-float32 accumulation. `conv3x3_fused` is differentiable with JAX's backward
-(`_bwd_rule`): dx is kernel F itself on the cotangent with flipped,
-transposed weights and float32 output (counted in `bwd_launches`), dw nine
-products of the shifted activations with the cotangent, and the pre-op's
-cotangent goes through autograd.
+Co) HWIO in the JAX function's layout, in x's dtype or float32 (the model's
+float32 weights beside a bf16 x, as JAX passes them; the weight is cast to
+x's dtype for the products), pre None or (inv, shift), each (B, C) float32:
+the pre-op elu(x * inv + shift) applied to x before the conv. Out (B, H, W,
+Co) in `out_dtype`: x's dtype or float32. float32 and bfloat16; float32
+accumulation. `conv3x3_fused` is differentiable with JAX's backward
+(`_bwd_rule`): dx is kernel F itself on the cotangent (in x's dtype) with
+flipped, transposed weights and float32 output (counted in `bwd_launches`),
+dw nine products of the shifted activations with the cotangent summed in
+float32 and returned in w's dtype, and the pre-op's cotangent goes through
+autograd.
 """
 
 from __future__ import annotations
@@ -56,8 +59,8 @@ def _check(x, w, pre, dilation):
     if x.dim() != 4 or w.dim() != 4 or w.shape[:3] != (3, 3, x.shape[-1]):
         raise ValueError(f"x (B, H, W, C) and w (3, 3, C, Co): {tuple(x.shape)} "
                          f"{tuple(w.shape)}")
-    if x.dtype not in _DTYPES or w.dtype != x.dtype:
-        raise TypeError(f"x, w must share float32 or bfloat16: {x.dtype} {w.dtype}")
+    if x.dtype not in _DTYPES or w.dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"x float32 or bfloat16, w x's dtype or float32: {x.dtype} {w.dtype}")
     if int(dilation) < 1:
         raise ValueError(f"dilation {dilation}")
     ops = [x, w]
@@ -86,7 +89,7 @@ def _launch(x, w, pre, dilation, out_dtype, bwd):
     if out.numel() == 0:
         return out
     lib = build.load("conv3x3")
-    wk = w.permute(0, 1, 3, 2).contiguous()  # (3, 3, Co, C): [tap][co][ci]
+    wk = w.to(x.dtype).permute(0, 1, 3, 2).contiguous()  # (3, 3, Co, C): [tap][co][ci]
     pre_arr = None if pre is None else torch.stack(pre, 1).contiguous()  # (B, 2, C)
     # bf16 with the pre-op: the kernel's first launch writes the activated input here
     act = torch.empty_like(x) if pre is not None and x.dtype == torch.bfloat16 else None
@@ -120,34 +123,47 @@ def _pre_op(x, inv, shift):
     return F.elu(x.float() * inv[:, None, None, :] + shift[:, None, None, :]).to(x.dtype)
 
 
-def conv3x3_input_grad(g, w, dilation):
+def conv3x3_input_grad(g, w, dilation, dtype=None):
     """dx of the conv without pre-op, float32: the conv of the cotangent
-    (rounded to w's dtype) with flip(w, (0, 1)).swapaxes(2, 3)."""
-    w_t = torch.flip(w, (0, 1)).transpose(2, 3)
-    gc = g.to(w.dtype).contiguous()
+    rounded to `dtype` (the forward's x dtype; default w's) with
+    flip(w, (0, 1)).swapaxes(2, 3) in that dtype."""
+    dtype = dtype or w.dtype
+    w_t = torch.flip(w, (0, 1)).transpose(2, 3).to(dtype)
+    gc = g.to(dtype).contiguous()
     _check(gc, w_t, None, dilation)
     return _conv(gc, w_t, None, dilation, torch.float32, bwd=True)
 
 
+def _product_f32(a, b):
+    """a @ b of two matrices of one dtype, summed and returned in float32:
+    on the card cuBLAS's bf16 product with a float32 output, on the CPU (no
+    such kernel) the same products of the float32 upcasts."""
+    if a.device.type == "cuda" and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return a.float() @ b.float()
+
+
 def conv3x3_weight_grad(a, g, dilation):
-    """dw (3, 3, C, Co): per tap, the L^2 contraction of the shifted
-    activations with the cotangent, float32 sums in a's dtype (JAX's dw)."""
+    """dw (3, 3, C, Co) float32: per tap, the L^2 contraction of the shifted
+    activations with the cotangent (in a's dtype), summed in float32 (JAX's
+    dw, `preferred_element_type=f32`)."""
     d, C, Co = dilation, a.shape[-1], g.shape[-1]
     g2 = g.to(a.dtype).reshape(-1, Co)
-    taps = [_shift2d(a, (ki - 1) * d, (kj - 1) * d).reshape(-1, C).t() @ g2
+    taps = [_product_f32(_shift2d(a, (ki - 1) * d, (kj - 1) * d).reshape(-1, C).t(), g2)
             for ki in range(3) for kj in range(3)]
     return torch.stack(taps).reshape(3, 3, C, Co)
 
 
 def conv3x3_backward(x, w, pre, dilation, g):
-    """JAX `_bwd_rule`: (dx, dw, dpre) with dpre None or (dinv, dshift)."""
+    """JAX `_bwd_rule`: (dx, dw, dpre) with dpre None or (dinv, dshift); dw
+    in w's dtype."""
     if pre is None:
-        dx = conv3x3_input_grad(g, w, dilation).to(x.dtype)
+        dx = conv3x3_input_grad(g, w, dilation, x.dtype).to(x.dtype)
         return dx, conv3x3_weight_grad(x, g, dilation).to(w.dtype), None
     with torch.enable_grad():
         xr, inv, shift = (t.detach().requires_grad_() for t in (x, *pre))
         a = _pre_op(xr, inv, shift)
-    da = conv3x3_input_grad(g, w, dilation)
+    da = conv3x3_input_grad(g, w, dilation, x.dtype)
     dw = conv3x3_weight_grad(a.detach(), g, dilation).to(w.dtype)
     dx, dinv, dshift = torch.autograd.grad(a, (xr, inv, shift), da.to(a.dtype))
     return dx, dw, (dinv, dshift)

@@ -46,28 +46,51 @@ def tied_attention_plain(q, k, v):
     return out.to(q.dtype), (m + torch.log(l))[..., 0]
 
 
+_forward = None  # the forward's C function, its argument types set once
+
+
+def _forward_fn():
+    global _forward
+    if _forward is None:
+        fn = build.load("tied_attention").tied_attention_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        _forward = fn
+    return _forward
+
+
 def _launch(q, k, v):
     global launches
-    for t in (q, k, v):
-        if not t.is_contiguous():
-            raise ValueError("tied attention kernel needs contiguous q, k, v")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("tied attention kernel needs contiguous q, k, v")
     BH, L, ND = q.shape
     NDv = v.shape[-1]
     if BH > 65535:
         raise ValueError(f"BH={BH} exceeds the kernel grid")
     if ND == 0 or NDv == 0:
         raise ValueError(f"empty feature axis: ND={ND} NDv={NDv}")
-    lib = build.load("tied_attention")
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (ND % 8 or NDv % 8 or (qp | kp | vp) % 16):
+        raise ValueError(f"bf16 tied attention kernel needs ND, NDv % 8 == 0 and 16-byte "
+                         f"aligned q, k, v: ND={ND} NDv={NDv}")
+    fn = _forward_fn()
     out = torch.empty((BH, L, NDv), dtype=q.dtype, device=q.device)
     lse = torch.empty((BH, L), dtype=torch.float32, device=q.device)
     if L == 0:
         return out, lse
-    fn = lib.tied_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    rc = fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out), build.ptr(lse),
-            BH, L, ND, NDv, _DTYPES[q.dtype], build.stream_of(q))
-    build.check(lib, rc, "tied_attention_fwd")
+    # bf16 in two launches (all but L <= 128, 64 < NDv <= 256): float32 scratch
+    # for the logits (rows padded to 16 bytes) and the softmax statistics of
+    # each 64-key tile
+    scratch = None
+    if bf16 and not (L <= 128 and 64 < NDv <= 256):
+        scratch = torch.empty(BH * L * (-(-L // 4) * 4 + 2 * -(-L // 64)),
+                              dtype=torch.float32, device=q.device)
+    rc = fn(qp, kp, vp, out.data_ptr(), lse.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), BH, L, ND, NDv, _DTYPES[q.dtype],
+            build.stream_of(q))
+    if rc:
+        build.check(build.load("tied_attention"), rc, "tied_attention_fwd")
     launches += 1
     return out, lse
 

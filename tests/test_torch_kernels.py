@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from rosettafold_tpu_torch import bridge
+from rosettafold_tpu_torch.models import resnet as tresnet
 from rosettafold_tpu_torch.models import se3 as tse3
 from rosettafold_tpu_torch.models.rosettafold import init_like_flax
 from rosettafold_tpu_torch.ops import knn as tknn
@@ -33,6 +34,7 @@ try:  # the JAX reference: present on the CPU test host, absent beside the card
     import jax
     import jax.numpy as jnp
 
+    from rosettafold_tpu.models import resnet as jresnet
     from rosettafold_tpu.models import se3 as jse3
     from rosettafold_tpu.ops import knn as jknn
     from rosettafold_tpu.ops import so3 as jso3
@@ -42,6 +44,7 @@ try:  # the JAX reference: present on the CPU test host, absent beside the card
     from rosettafold_tpu.ops.pallas import outer_product as jopm
     from rosettafold_tpu.ops.pallas import se3_attend as jatt
     from rosettafold_tpu.ops.pallas import tied_attention as jtied
+    from tests.port_utils import random_params
 except ImportError:
     jax = None
 
@@ -211,9 +214,16 @@ def test_se3_wrapper_rejects_gather_layout(needs_jax):
         tatt.gse3_attend(*args, src_idx=src.long())
 
 
+# the bf16 kernels' tiling edges: ragged L (77; 120 and 250 off the 64-row
+# tiles), every MSA depth the model path runs (ND = NDv = 32 N, N = 8, 16, 32,
+# 64: one launch at L <= 128, NDv <= 256, two above), B*H = 5 (no multiple of
+# the grid)
+TIED_EDGE_CASES = [(5, L, 32 * N, 32 * N) for L in (77, 120, 250) for N in (8, 16, 32, 64)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", TIED_CASES + [(48, 120, 2048, 2048)])
+@pytest.mark.parametrize("shape", TIED_CASES + [(48, 120, 2048, 2048)] + TIED_EDGE_CASES)
 def test_tied_kernel_matches_plain_on_card(cuda, shape, dtype):
     q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(*shape))
     out, lse = ttied.tied_attention_forward(q, k, v)
@@ -541,9 +551,14 @@ def test_opm_kernel_matches_plain_on_card(cuda, dtype, N):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("axis1,lnres", [(True, True), (False, True), (True, False)])
-def test_performer_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres):
-    x, ln, w, statics = _performer_args((2, 70, 37), D=288, h=8, dh=64, m=320)
+@pytest.mark.parametrize("axis1,lnres", [(True, True), (False, True), (True, False),
+                                         (False, False)])
+@pytest.mark.parametrize("shape", [(2, 70, 37), (3, 77, 130), (1, 129, 64)])
+def test_performer_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres, shape):
+    """Both axes, with and without LN/residual; problems and positions off the
+    bf16 FAVOR+ launch's 64-position chunks and its grid (and one exactly on
+    them: L = 64)."""
+    x, ln, w, statics = _performer_args(shape, D=288, h=8, dh=64, m=320)
     w = tuple(a / 2 for a in w[:4]) + w[4:]
     tx = _card(x, cuda, dtype)
     tln = (_card(ln[0], cuda), _card(ln[1], cuda), 1e-5) if lnres else None
@@ -631,6 +646,34 @@ def test_conv_backward_plain_matches_jax(needs_jax, dilation, with_pre):
     assert tconv.bwd_launches == before
     for a, b in zip(got, want):
         np.testing.assert_allclose(a, np.asarray(b), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+def test_conv_block_weight_grad_bf16_matches_jax(needs_jax, dilation):
+    """The bf16 residual conv block on kernel F (dropout off: conv1 without
+    the pre-op, conv2 with it) on the model's float32 weights: the weight
+    gradients against jax.vjp of JAX's kernel path (bf16 x, float32 kernel,
+    each tap summed in float32, dw in float32), within float32 summation
+    error. A dw rounded to bf16 misses by one bf16 rounding (~2e-3)."""
+    C, shape = 16, (1, 16, 16, 16)
+    x = np.random.default_rng(dilation).normal(size=shape).astype(np.float32)
+    g = np.random.default_rng(10 + dilation).normal(size=shape).astype(np.float32)
+    kw = dict(dilation=dilation, conv_impl="pallas", fused_min_l=1)
+    jmod = jresnet.ResBlock2D(C, dtype=jnp.bfloat16, **kw)
+    params = random_params(jmod, x)
+    _, vjp = jax.vjp(lambda p: jmod.apply(p, jnp.asarray(x, jnp.bfloat16)), params)
+    (want,) = vjp(jnp.asarray(g, jnp.bfloat16))
+    tmod = tresnet.ResBlock2D(C, dtype=torch.bfloat16, **kw)
+    tmod.load_state_dict(bridge.module_state_dict(params), strict=True)
+    tmod.eval()
+    out = tmod(torch.from_numpy(x).bfloat16())
+    out.backward(torch.from_numpy(g).bfloat16())
+    for name in ("conv1", "conv2"):
+        conv = getattr(tmod, name)
+        assert conv.weight.grad.dtype == torch.float32
+        jw = np.asarray(want["params"][name]["kernel"])
+        np.testing.assert_allclose(conv.weight.grad.permute(2, 3, 1, 0).numpy(), jw,
+                                   rtol=1e-4, atol=1e-4 * np.abs(jw).max(), err_msg=name)
 
 
 def test_ff_and_opm_backward_match_jax(needs_jax):
@@ -756,10 +799,14 @@ def test_wrapper_without_grad_mode_bypasses_autograd(name, monkeypatch):
 # ---- on the card: each backward kernel against its plain version
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(3, 77, 96, 96), (2, 130, 512, 512)])
-def test_tied_backward_kernel_matches_plain_on_card(cuda, shape, dtype):
+@pytest.mark.parametrize("shape", [(3, 77, 96, 96), (2, 130, 512, 512), (5, 120, 256, 256)])
+@pytest.mark.parametrize("forward", ["plain", "kernel"])
+def test_tied_backward_kernel_matches_plain_on_card(cuda, shape, dtype, forward):
+    """G from the saved out and lse of A's plain version or of kernel A (as
+    on the model path)."""
     q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(*shape))
-    out, lse = ttied.tied_attention_plain(q, k, v)
+    out, lse = (ttied.tied_attention_plain if forward == "plain"
+                else ttied.tied_attention_forward)(q, k, v)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
     before = ttied.bwd_launches
     got = ttied.tied_attention_backward(q, k, v, out, lse, g)
