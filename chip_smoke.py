@@ -3,6 +3,8 @@
 check them.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --host-time   (phases 1-2 and the C and D wrappers'
+                                         host time alone; no result line)
 
 Phases (any failure exits non-zero and prints no result line):
   1. device: a CUDA card is required; prints torch/CUDA versions and
@@ -28,21 +30,29 @@ Phases (any failure exits non-zero and prints no result line):
      at dilations 1/2/4/8 with and without the pre-op, beside cuDNN's conv at each
      dilation, logging the pre-op's cost in bf16; and C (LN + residual,
      both axes), D, E (at the request's N) and F in bfloat16 at B=1, L=512
-     and L=1100, their plain versions in row slices of 128; C also at a
-     ragged (B, L) = (3, 77) (problems and positions off the FAVOR+ launch's
-     tiles), both axes, with and without LN/residual. Each shape logs
+     and L=1100, their plain versions in row slices of 128; C also at
+     ragged (B, L) = (3, 77) and (1, 9) (problems and positions off the FAVOR+
+     launch's tiles, rows off the projection's and output launch's 128-row
+     blocks), both axes, with and without LN/residual; D at 5929, 100 and 128
+     rows (off, below and on its 128-row blocks); the C and D wrappers' host
+     time a call at the main shape, weights passed as the model passes them
+     (`host_ms`). Each shape logs
      max|d| against its bound, the kernel's and the plain version's CUDA-event
      ms (beside a library call: kernel and library timed in turns, kernel,
      library, library, kernel), and the least time the card could take
      (`bound`); at A's main shape also A's and SDPA's device time
      (torch.profiler), at C's each of its three launches' device time beside
-     its own bound (`launches_ms`, `launch_bound_ms`);
+     its own bound (`launches_ms`, `launch_bound_ms`), at D's its device time
+     beside its bound (`device_ms`, `launch_bound_ms`);
   3b. the backward kernels against their plain backward versions, float32
      and bfloat16: tied attention's (G) at L in {128, 250}, N in {8, 16},
      B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over both axes, with and without LN,
      at L=128 (B=4) and L=250 (B=1); F's float32-output input gradient at
      dilations 1/2/4/8; the same logs, and the library yardsticks (SDPA's
-     backward, cuDNN's conv input gradient at each dilation); and F's weight
+     backward through torch.autograd.grad, which accumulates into no .grad;
+     cuDNN's conv input gradient at each dilation); at G's main shape also
+     20 alternating turns of G and SDPA's backward (median and range, `turns`)
+     and both sides' device time (torch.profiler); and F's weight
      gradient at B=4, L=128 (nine bf16 products summed in float32, as JAX)
      beside the bf16-rounded sums it replaced (`weight_grad_ms`);
   4. serving: requests through `predict()` with the fast preset, made from
@@ -68,7 +78,8 @@ Phases (any failure exits non-zero and prints no result line):
      path's neighborhoods;
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
      busy share and the top device-time operators; every profile (4b, 6, 7)
-     also logs kernels A's, C's and F's device kernels: calls and ms a call;
+     also logs kernels A's, C's, D's and F's device kernels: calls and ms a
+     call;
   7. training: train.loop.fit with bench_train.py's configuration (bf16,
      kernels, dense SE(3), remat, dropout 0.1, bf16 first moments) on a
      synthetic (A3M, PDB) pair, at B=1 / n_seq 8 / crop 128 and B=4 / n_seq
@@ -162,14 +173,17 @@ F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 # device kernels of A (csrc/tied_attention.cu: the bf16 one-launch kernel at
 # L <= 128, 64 < NDv <= 256, the bf16 logits and P.V launches, the float32
-# kernel), C (csrc/fused_performer.cu: the projection, the bf16 and float32
-# FAVOR+ launches, the output projection) and F (csrc/conv3x3.cu: the bf16
-# conv, its pre-op launch, the float32 conv); each profile logs their calls
-# and time
+# kernel), C (csrc/fused_performer.cu: the bf16 and float32 projection,
+# FAVOR+ and output launches), D (csrc/fused_ff.cu: bf16, float32) and F
+# (csrc/conv3x3.cu: the bf16 conv, its pre-op launch, the float32 conv);
+# each profile logs their calls and time
 PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "tied_fwd_f32"),
-            "C": ("performer_proj_kernel", "favor_wgmma_kernel", "favor_f32_kernel",
-                  "performer_out_kernel"),
+            "C": ("proj_wgmma_kernel", "performer_proj_kernel", "favor_wgmma_kernel",
+                  "favor_f32_kernel", "out_wgmma_kernel", "performer_out_kernel"),
+            "D": ("ff_wgmma_kernel", "fused_ff_kernel"),
             "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel")}
+# ms a call the wrappers' host side takes is timed over this many calls
+HOST_CALLS = 50
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
 # cores, HBM3
@@ -593,6 +607,8 @@ def phase_pair_kernels(res):
             res.case("fused_ff", shape, ff.fused_ln_ff_residual,
                      _in_rows(ff.fused_ff_plain, rows, 1), args, dname, main=main,
                      iters=10 if main else iters)
+            if main:
+                _ff_launch(res, lambda a=args: ff.fused_ln_ff_residual(*a), B * L * L)
             # E
             for N in Ns:
                 xo = _normal((B, N, L, 32), 1.0, g)
@@ -627,15 +643,30 @@ def phase_pair_kernels(res):
                     log(f"conv3x3 {shape} dilation {dil} bfloat16: pre-op cost {ms[True]:.4f} /"
                         f" {ms[False]:.4f} ms = {ms[True] / ms[False]:.3f}x")
             del x, xn
-    # C at a ragged (B, L): problems and positions off the FAVOR+ launch's tiles
-    B, L = 3, 77
-    x32 = _normal((B, L, L, D), 1.0, g)
-    gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
-    for dname in both:
-        dt = _dt(dname)
-        w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
-        w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
-        _performer_cases(res, x32.to(dt), gam, bet, w, f"B={B} L={L}", dname, None, False, 1)
+    # C at ragged (B, L): problems and positions off the FAVOR+ launch's tiles,
+    # and rows (P * L = 17787, 81) off the projection's and output launch's
+    # 128-row blocks, one of them (L = 9) less than a block
+    for B, L in ((3, 77), (1, 9)):
+        x32 = _normal((B, L, L, D), 1.0, g)
+        gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
+        for dname in both:
+            dt = _dt(dname)
+            w = [_normal((D, HD), D ** -0.5, g, dt) for _ in range(3)]
+            w += [_normal((HD, D), HD ** -0.5, g, dt), _normal((D,), 0.1, g, dt), proj]
+            _performer_cases(res, x32.to(dt), gam, bet, w, f"B={B} L={L}", dname, None, False,
+                             1)
+    # D at rows off its 128-row blocks (5929 and 100: less than one) and on one (128)
+    for shape in ((1, 77, 77), (1, 1, 100), (1, 2, 64)):
+        x32 = _normal((*shape, D), 1.0, g)
+        gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
+        for dname in both:
+            dt = _dt(dname)
+            args = (x32.to(dt), gam, bet, _normal((D, FF), D ** -0.5, g, dt),
+                    _normal((FF,), 0.1, g), _normal((FF, D), FF ** -0.5, g, dt),
+                    _normal((D,), 0.1, g), 1e-5)
+            res.case("fused_ff", f"rows {math.prod(shape)}", ff.fused_ln_ff_residual,
+                     ff.fused_ff_plain, args, dname, iters=1)
+    _wrapper_host_times(res)
 
 
 def _performer_cases(res, x, gam, bet, w, shape, dname, rows, main, iters):
@@ -688,8 +719,8 @@ def _performer_launches(res, call, P, L):
               "out": 2 * (M * HD + 2 * M * D + HD * D)}
     bounds = {k: max(flops[k] / PEAK_FLOPS["bfloat16"], nbytes[k] / HBM_BYTES_S) * 1e3
               for k in flops}
-    names = {"proj": "performer_proj_kernel", "favor": "favor_wgmma_kernel",
-             "out": "performer_out_kernel"}
+    names = {"proj": "proj_wgmma_kernel", "favor": "favor_wgmma_kernel",
+             "out": "out_wgmma_kernel"}
     ms = {}
     for k, name in names.items():
         ms[k] = _device_ms(call, name, calls=10)
@@ -699,6 +730,80 @@ def _performer_launches(res, call, P, L):
             f" {bounds[k]:.4f} ms ({by})")
         require(ms[k] > 0, f"no device time for C's {k} launch in the profile")
     res.kernels["fused_performer"].update(launches_ms=ms, launch_bound_ms=bounds)
+
+
+def _ff_launch(res, call, M):
+    """D's device time a call (torch.profiler over 10 calls) beside its bound:
+    its two products over the bf16 peak against x, out and the weights over
+    HBM."""
+    D, F = 288, 1152
+    t_ops = 2 * 2 * M * D * F / PEAK_FLOPS["bfloat16"]
+    t_bytes = 2 * (2 * M * D + 2 * D * F) / HBM_BYTES_S
+    bound_ms, by = max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    ms = _device_ms(call, "ff_wgmma_kernel", calls=10)
+    log(f"fused_ff launch (ff_wgmma_kernel): {ms:.4f} ms a call, bound {bound_ms:.4f} ms ({by})")
+    require(ms > 0, "no device time for D's launch in the profile")
+    res.kernels["fused_ff"].update(device_ms=ms, launch_bound_ms=bound_ms)
+
+
+def _wrapper_host_times(res):
+    """The C and D wrappers' host time a call at the main shape (B=4, L=128,
+    bf16), the weights passed as the model passes them (transposed views of
+    nn.Linear weights): the median of 5 runs of HOST_CALLS calls enqueued back
+    to back on the host clock (no synchronisation inside; the card runs
+    behind), beside the same calls' CUDA-event ms."""
+    import torch
+
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import fused_ff as ff
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    D, HD, FF, B, L, dt = 288, 512, 1152, 4, 128, torch.bfloat16
+    x = _normal((B, L, L, D), 1.0, g, dt)
+    gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
+    w = [_normal((HD, D), D ** -0.5, g, dt).t() for _ in range(3)]
+    w += [_normal((D, HD), HD ** -0.5, g, dt).t(), _normal((D,), 0.1, g, dt), proj]
+    ff_args = (x, gam, bet, _normal((FF, D), D ** -0.5, g, dt).t(), _normal((FF,), 0.1, g),
+               _normal((D, FF), FF ** -0.5, g, dt).t(), _normal((D,), 0.1, g), 1e-5)
+    calls = {"fused_performer": lambda: fp.fused_ln_performer_residual_axis1(
+                 x, gam, bet, *w, 64 ** -0.25, 1e-3, 8, 64, 1e-5),
+             "fused_ff": lambda: ff.fused_ln_ff_residual(*ff_args)}
+    with torch.inference_mode():
+        for name, call in calls.items():
+            runs = []
+            for _ in range(5):
+                call()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(HOST_CALLS):
+                    call()
+                runs.append((time.perf_counter() - t0) * 1e3 / HOST_CALLS)
+                torch.cuda.synchronize()
+            host, ms = statistics.median(runs), cuda_time(call, 20)
+            log(f"{name} wrapper at B=4 L=128 bfloat16: host time {host:.4f} ms a call (median"
+                f" of 5 x {HOST_CALLS}; {min(runs):.4f}-{max(runs):.4f}), CUDA events"
+                f" {ms:.4f} ms a call")
+            res.kernels[name].update(host_ms=host, host_call_ms=ms)
+
+
+def _alternating(res, name, fa, fb, turns=20, iters=10):
+    """CUDA-event ms of fa and fb over `turns` alternating turns of `iters`
+    calls each (a, b, b, a, ...): each side's median and range."""
+    ms = {"kernel": [], "library": []}
+    for i in range(turns):
+        order = (("kernel", fa), ("library", fb)) if i % 2 == 0 else (("library", fb),
+                                                                      ("kernel", fa))
+        for side, f in order:
+            ms[side].append(cuda_time(f, iters))
+    summary = {side: {"median": statistics.median(v), "min": min(v), "max": max(v)}
+               for side, v in ms.items()}
+    log(f"{name}: {turns} alternating turns of {iters} calls, median (min-max) ms: kernel"
+        f" {summary['kernel']['median']:.4f} ({summary['kernel']['min']:.4f}-"
+        f"{summary['kernel']['max']:.4f}), library {summary['library']['median']:.4f}"
+        f" ({summary['library']['min']:.4f}-{summary['library']['max']:.4f})")
+    res.kernels[name]["turns"] = summary
 
 
 def phase_backward_kernels(res):
@@ -725,10 +830,12 @@ def phase_backward_kernels(res):
                 args = (qd, kd, vd, out, lse, gd)
                 main = (L, N, dname) == (128, 16, "bfloat16")  # train_cli's B=4, n_seq 16
                 lib = None
-                if main:  # SDPA's backward on the same q, k, v, where it takes the shape
+                if main:  # SDPA's backward on the same q, k, v, where it takes the shape;
+                    # autograd.grad returns the gradients and accumulates nothing
                     leaves = [t[:, None].detach().requires_grad_() for t in (qd, kd, vd)]
                     o = F.scaled_dot_product_attention(*leaves, scale=1.0)
-                    lib = lambda: o.backward(gd[:, None], retain_graph=True)  # noqa: E731
+                    lib = lambda: torch.autograd.grad(  # noqa: E731
+                        o, leaves, gd[:, None], retain_graph=True)
                     try:
                         lib()
                     except RuntimeError as e:  # the yardstick only; the port never calls it
@@ -737,6 +844,16 @@ def phase_backward_kernels(res):
                 res.case("tied_attention_bwd", f"B*H={BH} L={L} N={N}", ta.tied_attention_backward,
                          ta.tied_attention_bwd_plain, args, dname, main=main, library=lib,
                          iters=10 if main else 3, grad=True)
+                if main and lib is not None:
+                    def kernel(a=args):
+                        return ta.tied_attention_backward(*a)
+                    _alternating(res, "tied_attention_bwd", kernel, lib)
+                    dev = {"device_ms": _device_ms(kernel),
+                           "library_device_ms": _device_ms(lib)}
+                    log(f"tied_attention_bwd B*H={BH} L={L} N={N} bfloat16: device time a call"
+                        f" {dev['device_ms']:.4f} ms, SDPA's backward"
+                        f" {dev['library_device_ms']:.4f} ms")
+                    res.kernels["tied_attention_bwd"].update(dev)
     D, HD = 288, 512
     proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
     statics = (64 ** -0.25, 1e-3, 8, 64)
@@ -1305,6 +1422,19 @@ def phase_training(pairs):
     return counts
 
 
+def host_time_only():
+    """`--host-time`: phases 1-2, then the C and D wrappers' host time a call
+    (`_wrapper_host_times`) as one JSON line and no result line; run it from
+    two checkouts to compare them."""
+    phase_device()
+    phase_build()
+    res = Results()
+    _wrapper_host_times(res)
+    print(json.dumps({k: {f: res.kernels[k][f] for f in ("host_ms", "host_call_ms")}
+                      for k in ("fused_performer", "fused_ff")}))
+    return 0
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(ROOT, "rosettafold_tpu_torch")):
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1320,6 +1450,8 @@ def main() -> int:
         print("chip_smoke.py: no CUDA card; the port's kernels run only on one",
               file=sys.stderr)
         return 2
+    if "--host-time" in sys.argv[1:]:
+        return host_time_only()
     res = Results()
     try:
         t0 = time.perf_counter()

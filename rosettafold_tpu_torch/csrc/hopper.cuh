@@ -1,15 +1,20 @@
 // Hopper (sm_90a) building blocks for kernels that stage operands by TMA
-// and multiply them with wgmma (kernels F, A and C's FAVOR+ launch):
+// and multiply them with wgmma (kernels F, A, C's three launches and D):
 //  * shared-memory addresses, mbarriers (init, arrive, expect_tx, a bounded
 //    parity wait) and named barriers;
-//  * TMA tiled loads (2-D, 3-D and 4-D) that complete on an mbarrier; they and
-//    expect_tx take a predicate, so a warpgroup runs the issue code in step
-//    and one thread acts (a branch around them diverges the warpgroup, and
-//    ptxas then serialises its wgmmas);
+//  * TMA tiled loads (2-D, 3-D and 4-D) that complete on an mbarrier, and a
+//    2-D tiled store in a bulk group; they, expect_tx and the bulk-group
+//    commit and wait take a predicate, so a warpgroup runs the issue code in
+//    step and one thread acts (a branch around them diverges the warpgroup,
+//    and ptxas then serialises its wgmmas);
 //  * wgmma: the shared-memory descriptors of a K-major and an MN-major
 //    operand in the 128-byte swizzle, fence / commit / wait, and `Wgmma<N>`
 //    (m64nNk16 bf16, N = 64, 128, 144, 256): A in shared memory (ss) or in
 //    registers (rs), B in shared memory K-major or MN-major;
+//  * rows of the pair width (288) as a warpgroup holds them: a LayerNorm
+//    straight into wgmma A fragments, the epilogue of a 64 x 288
+//    accumulator (bias, residual, 16-byte row stores through shared memory),
+//    and a bulk prefetch of rows into L2;
 //  * the card's SM count;
 //  * the host's cuTensorMapEncodeTiled, reached through the runtime's
 //    driver entry point (no link against libcuda).
@@ -109,6 +114,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n}\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(pred)
+      : "memory");
+}
+
+// A 2-D tile from shared memory (laid out as the map's swizzle) to global
+// memory, in this thread's bulk group; elements outside the tensor are not
+// written. The source must not change until the group has read it.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             uint32_t pred) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %4, 0;\n"
+      " @p cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n}\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(pred)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit(uint32_t pred) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %0, 0;\n @p cp.async.bulk.commit_group;\n}\n" ::"r"(
+          pred)
+      : "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read their shared
+// memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read(uint32_t pred) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.u32 p, %0, 0;\n @p cp.async.bulk.wait_group.read %1;\n}\n" ::"r"(
+          pred),
+      "n"(N)
       : "memory");
 }
 
@@ -309,6 +345,36 @@ struct Wgmma<144> {
         "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
         : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
+  // d (64 x 144) = (scale_d ? d : 0) + A . B; A (64 x 16) in registers (the
+  // accumulator layout, bf16 pairs), B in shared memory: K-major (TRANS_B 0)
+  // or MN-major (TRANS_B 1)
+  template <int TRANS_B>
+  __device__ __forceinline__ static void rs(float (&d)[72], const uint32_t (&a)[4],
+                                            uint64_t desc_b, uint32_t scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %77, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71"
+        "}, {%72, %73, %74, %75}, %76, p, 1, 1, %78;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+  }
 };
 
 template <>
@@ -359,6 +425,136 @@ struct Wgmma<256> {
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
   }
 };
+
+// ---- rows of the pair width -------------------------------------------------
+// A warpgroup of a pair-track kernel holds 64 rows of D = 288 values: thread
+// (warp w of the warpgroup, lane 4g + t) holds rows 16w + g and 16w + g + 8.
+
+constexpr int PAIR_D = 288;
+constexpr int PAIR_KSTEPS = PAIR_D / 16;  // K steps of 16 over a row
+constexpr int PAIR_LDH = PAIR_D / 2 + 8;  // staging row stride of a half row (elements),
+                                          // conflict-free for the fragments' 4-byte pairs
+constexpr int PAIR_STAGE_BYTES = 64 * PAIR_LDH * 2;  // a warpgroup's epilogue staging
+
+// LayerNorm of the thread's two rows (float32 statistics, var = E[x^2] -
+// E[x]^2 as flax's fast variance), rounded to bf16 straight into the wgmma
+// A fragments of the 18 K steps: a[ks][k] holds columns 16ks + 8(k >> 1) +
+// 2t, +1 of row `lo` (k even) or `hi` (k odd), the accumulator layout's bf16
+// pairs. The four threads of a quad hold a row between them; each reads its
+// 72 values of each row as 4-byte pairs. A null row reads as zeros; a null
+// gamma copies the rows (no LayerNorm).
+__device__ __forceinline__ void ln_a_fragments(uint32_t (&a)[PAIR_KSTEPS][4],
+                                               const __nv_bfloat16* lo, const __nv_bfloat16* hi,
+                                               const float* gamma, const float* beta, float eps,
+                                               int t) {
+#pragma unroll
+  for (int ks = 0; ks < PAIR_KSTEPS; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __nv_bfloat16* row = (k & 1) ? hi : lo;
+      const int col = 16 * ks + 8 * (k >> 1) + 2 * t;
+      a[ks][k] = row == nullptr ? 0u : __ldg(reinterpret_cast<const unsigned int*>(row + col));
+    }
+  if (gamma == nullptr) return;
+  float s[2] = {0.f, 0.f}, ss[2] = {0.f, 0.f};
+#pragma unroll
+  for (int ks = 0; ks < PAIR_KSTEPS; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]));
+      s[k & 1] += v.x + v.y;
+      ss[k & 1] += v.x * v.x + v.y * v.y;
+    }
+  float mu[2], inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 1);
+    s[h] += __shfl_xor_sync(0xffffffffu, s[h], 2);
+    ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 1);
+    ss[h] += __shfl_xor_sync(0xffffffffu, ss[h], 2);
+    mu[h] = s[h] / PAIR_D;
+    inv[h] = rsqrtf(fmaxf(ss[h] / PAIR_D - mu[h] * mu[h], 0.f) + eps);
+  }
+#pragma unroll
+  for (int ks = 0; ks < PAIR_KSTEPS; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = 16 * ks + 8 * (k >> 1) + 2 * t, h = k & 1;
+      const float2 g = __ldg(reinterpret_cast<const float2*>(gamma + col));
+      const float2 b = __ldg(reinterpret_cast<const float2*>(beta + col));
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]));
+      a[ks][k] = pack_bf16((v.x - mu[h]) * inv[h] * g.x + b.x, (v.y - mu[h]) * inv[h] * g.y + b.y);
+    }
+}
+
+// 16 bytes from global to shared memory without passing through registers
+// (both 16-byte aligned), and the wait for all of this thread's such copies.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// The epilogue of a warpgroup holding 64 rows x 288 float32 sums in two
+// m64n144 accumulators (columns 0-143, 144-287): out row r = bf16(acc + bias
+// (+ x row r)), added in float32 and rounded once. Each half goes through
+// shared memory `st` (64 rows of PAIR_LDH elements, 19,456 bytes) so that x
+// is read and out written as whole 16-byte vectors: row_x(r), row_out(r)
+// give row r's first element (x is read only with `residual`); rows >=
+// `valid` are not written. Whole warpgroup; `bar` is a named barrier of its
+// 128 threads. `st` may be written again once it returns.
+template <typename RowX, typename RowOut>
+__device__ __forceinline__ void epilogue_rows_288(__nv_bfloat16* st, const float (&acc0)[72],
+                                                  const float (&acc1)[72],
+                                                  const float* __restrict__ bias, int residual,
+                                                  RowX row_x, RowOut row_out, int valid, int bar) {
+  constexpr int VPH = PAIR_D / 2 / 8;  // 16-byte vectors a half row
+  const int tid = threadIdx.x & 127, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (tid >> 5) + g;
+  auto half = [&](const float(&d)[72], int col0) {
+    if (residual) {  // asynchronous copies: every row's loads in flight at once
+      for (int e = tid; e < valid * VPH; e += 128) {
+        const int r = e / VPH, c = 8 * (e % VPH);
+        cp_async_16(st + r * PAIR_LDH + c, row_x(r) + col0 + c);
+      }
+      cp_async_wait_all();
+    }
+    named_barrier(bar, 128);
+#pragma unroll
+    for (int n = 0; n < 18; ++n) {
+      const int col = 8 * n + 2 * t;
+      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(st + (r0 + 8 * h) * PAIR_LDH + col);
+        float v0 = d[4 * n + 2 * h] + b.x, v1 = d[4 * n + 2 * h + 1] + b.y;
+        if (residual) {
+          const float2 x = __bfloat1622float2(*p);
+          v0 = x.x + v0;
+          v1 = x.y + v1;
+        }
+        *p = __floats2bfloat162_rn(v0, v1);
+      }
+    }
+    named_barrier(bar, 128);
+    for (int e = tid; e < valid * VPH; e += 128) {
+      const int r = e / VPH, c = 8 * (e % VPH);
+      *reinterpret_cast<uint4*>(row_out(r) + col0 + c) =
+          *reinterpret_cast<const uint4*>(st + r * PAIR_LDH + c);
+    }
+    named_barrier(bar, 128);  // st is read before it is written again
+  };
+  half(acc0, 0);
+  half(acc1, PAIR_D / 2);
+}
+
+// Prefetch `bytes` (a multiple of 16) from 16-byte aligned global memory into L2.
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(p), "r"(bytes) : "memory");
+}
 
 // ---- host ---------------------------------------------------------------------
 

@@ -48,6 +48,20 @@ def _check(x, gamma, beta, w1, b1, w2, b2):
         raise ValueError("all operands must be on one device")
 
 
+_fwd = None  # the C function, its argument types set once
+
+
+def _fwd_fn():
+    global _fwd
+    if _fwd is None:
+        fn = build.load("fused_ff").fused_ff_fwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        _fwd = fn
+    return _fwd
+
+
 def _launch(x, gamma, beta, w1, b1, w2, b2, ln_eps):
     global launches
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -59,17 +73,14 @@ def _launch(x, gamma, beta, w1, b1, w2, b2, ln_eps):
     out = torch.empty_like(x)
     if M == 0:
         return out
-    lib = build.load("fused_ff")
+    fn = _fwd_fn()
     w1k, w2k = w1.t().contiguous(), w2.t().contiguous()  # nn.Linear layout
     g, b, bb1, bb2 = (t.contiguous() for t in (gamma, beta, b1, b2))
-    fn = lib.fused_ff_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    rc = fn(build.ptr(x), build.ptr(g), build.ptr(b), build.ptr(w1k), build.ptr(bb1),
-            build.ptr(w2k), build.ptr(bb2), build.ptr(out), M, D, F, float(ln_eps),
+    rc = fn(x.data_ptr(), g.data_ptr(), b.data_ptr(), w1k.data_ptr(), bb1.data_ptr(),
+            w2k.data_ptr(), bb2.data_ptr(), out.data_ptr(), M, D, F, float(ln_eps),
             _DTYPES[x.dtype], build.stream_of(x))
-    build.check(lib, rc, "fused_ff_fwd")
+    if rc:
+        build.check(build.load("fused_ff"), rc, "fused_ff_fwd")
     launches += 1
     return out
 

@@ -96,6 +96,21 @@ def _check(x, weights, ln, projection, heads, dim_head):
         raise ValueError("all operands must be on one device")
 
 
+_fwd = None  # kernel C's C function, its argument types set once
+
+
+def _fwd_fn():
+    global _fwd
+    if _fwd is None:
+        fn = build.load("fused_performer").fused_performer_fwd
+        fn.restype = ctypes.c_int
+        c_p, c_f, c_i, c_ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = ([c_p, c_p, c_p, c_f] + [c_p] * 6 + [c_f, c_f] + [c_p] * 3
+                       + [c_ll, c_i, c_ll, c_ll, c_ll] + [c_i] * 6 + [c_p])
+        _fwd = fn
+    return _fwd
+
+
 def _launch(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim_head, axis):
     global launches
     if not x.is_contiguous() or x.data_ptr() % 16:
@@ -115,7 +130,7 @@ def _launch(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim
         return out
     if P > 65535:
         raise ValueError(f"{P} row-problems exceed the kernel grid")
-    lib = build.load("fused_performer")
+    fn = _fwd_fn()
     cdt = x.dtype
     wqk, wkk, wvk, wok = (w.t().contiguous() for w in (wq, wk, wv, wo))  # nn.Linear layout
     proj = projection.to(cdt).contiguous()
@@ -124,20 +139,16 @@ def _launch(x, ln, wq, wk, wv, wo, bo, projection, scale, kernel_eps, heads, dim
     att = torch.empty((P * L, heads * dim_head), dtype=cdt, device=x.device)
     if ln is not None:
         gamma, beta = ln[0].contiguous(), ln[1].contiguous()
-        g_ptr, b_ptr, ln_eps = build.ptr(gamma), build.ptr(beta), float(ln[2])
+        g_ptr, b_ptr, ln_eps = gamma.data_ptr(), beta.data_ptr(), float(ln[2])
     else:
         g_ptr = b_ptr = None
         ln_eps = 0.0
-    fn = lib.fused_performer_fwd
-    fn.restype = ctypes.c_int
-    c_p, c_f, c_i, c_ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([c_p, c_p, c_p, c_f] + [c_p] * 6 + [c_f, c_f] + [c_p] * 3
-                   + [c_ll, c_i, c_ll, c_ll, c_ll] + [c_i] * 6 + [c_p])
-    rc = fn(build.ptr(x), g_ptr, b_ptr, ln_eps, build.ptr(wqk), build.ptr(wkk), build.ptr(wvk),
-            build.ptr(wok), build.ptr(bo32), build.ptr(proj), float(scale), float(kernel_eps),
-            build.ptr(qkv), build.ptr(att), build.ptr(out), P, L, L1 * L2 * D, s_lo, s_pos,
+    rc = fn(x.data_ptr(), g_ptr, b_ptr, ln_eps, wqk.data_ptr(), wkk.data_ptr(), wvk.data_ptr(),
+            wok.data_ptr(), bo32.data_ptr(), proj.data_ptr(), float(scale), float(kernel_eps),
+            qkv.data_ptr(), att.data_ptr(), out.data_ptr(), P, L, L1 * L2 * D, s_lo, s_pos,
             p_inner, D, heads, dim_head, m, _DTYPES[cdt], build.stream_of(x))
-    build.check(lib, rc, "fused_performer_fwd")
+    if rc:
+        build.check(build.load("fused_performer"), rc, "fused_performer_fwd")
     launches += 1
     return out
 

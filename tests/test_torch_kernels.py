@@ -336,9 +336,9 @@ def _affine(rng, n):
             (0.1 * rng.normal(size=n)).astype(np.float32))
 
 
-def _ff_args(D=24, F=48, seed=0):
+def _ff_args(D=24, F=48, seed=0, x_shape=(2, 6, 10)):
     rng = np.random.default_rng(seed)
-    x = rng.normal(size=(2, 6, 10, D)).astype(np.float32)
+    x = rng.normal(size=x_shape + (D,)).astype(np.float32)
     g, b = _affine(rng, D)
     w1 = (rng.normal(size=(D, F)) * 0.2).astype(np.float32)
     b1 = (0.1 * rng.normal(size=F)).astype(np.float32)
@@ -482,10 +482,21 @@ def _card(a, cuda, dtype=torch.float32):
     return torch.from_numpy(np.ascontiguousarray(a)).to(cuda, dtype)
 
 
+# (x shape, hidden width F): the bf16 kernel's blocks are 128 rows (two
+# warpgroups of 64), so M = 120 and 100 are less than one block (one of them
+# less than a warpgroup's rows in its second), 128 exactly one, 5929 and 6150
+# off the blocks; F = 64 and 192 are one and three of its hidden chunks (its
+# weight rings have two stages)
+FF_CARD_CASES = [((2, 6, 10), 1152), ((1, 1, 100), 1152), ((1, 2, 64), 1152),
+                 ((1, 77, 77), 1152), ((3, 50, 41), 1152), ((2, 6, 10), 64),
+                 ((1, 77, 77), 192)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ff_kernel_matches_plain_on_card(cuda, dtype):
-    x, g, b, w1, b1, w2, b2 = _ff_args(D=288, F=1152)
+@pytest.mark.parametrize("x_shape,F", FF_CARD_CASES)
+def test_ff_kernel_matches_plain_on_card(cuda, dtype, x_shape, F):
+    x, g, b, w1, b1, w2, b2 = _ff_args(D=288, F=F, x_shape=x_shape)
     w1, w2 = w1 / 4, w2 / 8
     args = (_card(x, cuda, dtype), _card(g, cuda), _card(b, cuda), _card(w1, cuda, dtype),
             _card(b1, cuda), _card(w2, cuda, dtype), _card(b2, cuda), 1e-5)
@@ -553,11 +564,13 @@ def test_opm_kernel_matches_plain_on_card(cuda, dtype, N):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("axis1,lnres", [(True, True), (False, True), (True, False),
                                          (False, False)])
-@pytest.mark.parametrize("shape", [(2, 70, 37), (3, 77, 130), (1, 129, 64)])
+@pytest.mark.parametrize("shape", [(2, 70, 37), (3, 77, 130), (1, 129, 64), (1, 9, 5),
+                                   (2, 64, 1)])
 def test_performer_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres, shape):
     """Both axes, with and without LN/residual; problems and positions off the
     bf16 FAVOR+ launch's 64-position chunks and its grid (and one exactly on
-    them: L = 64)."""
+    them: L = 64); rows P * L off the bf16 projection's and output launch's
+    128-row blocks, one less than a block (45) and one exactly on it (128)."""
     x, ln, w, statics = _performer_args(shape, D=288, h=8, dh=64, m=320)
     w = tuple(a / 2 for a in w[:4]) + w[4:]
     tx = _card(x, cuda, dtype)
