@@ -21,7 +21,10 @@ Phases (any failure exits non-zero and prints no result line):
      SE(3) attend (B) at the three GSE3Res layer shapes, B=4, L=128, kNN mask,
      and on its gather layout (`src_idx` from `knn_bucket_indices` of a
      random-walk backbone) at L=512 and L=1100 with S=272 (K_max 128) and
-     S=80 (K 32), and at a ragged L=77, S=48; generalized FAVOR+ linear attention (H),
+     S=80 (K 32), and at a ragged L=77, S=48; B's device time
+     (torch.profiler) and its bound on the 3xTF32 tensor-core line beside
+     the float32 one at res_1's dense and gather shapes and at L=1100 (the
+     float32 line is the one `bound` records); generalized FAVOR+ linear attention (H),
      float32 and bfloat16, at (P, L) = (8 * 512, 512), bench_kernels.py's
      shape at L=512, and at a ragged (7, 77);
      the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
@@ -173,21 +176,26 @@ F32_TOL = {"tied_attention": (2e-5, 2e-5), "se3_attend": (2e-5, 2e-5),
 BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 # device kernels of A (csrc/tied_attention.cu: the bf16 one-launch kernel at
 # L <= 128, 64 < NDv <= 256, the bf16 logits and P.V launches, the float32
-# kernel), C (csrc/fused_performer.cu: the bf16 and float32 projection,
-# FAVOR+ and output launches), D (csrc/fused_ff.cu: bf16, float32) and F
-# (csrc/conv3x3.cu: the bf16 conv, its pre-op launch, the float32 conv);
-# each profile logs their calls and time
+# kernel), B (csrc/se3_attend.cu, both layouts), C (csrc/fused_performer.cu:
+# the bf16 and float32 projection, FAVOR+ and output launches), D
+# (csrc/fused_ff.cu: bf16, float32), F (csrc/conv3x3.cu: the bf16 conv, its
+# pre-op launch, the float32 conv) and G (csrc/tied_attention_bwd.cu: dsum,
+# the bf16 p / ds and gradient launches, the float32 ones); each profile logs
+# their calls and time
 PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "tied_fwd_f32"),
+            "B": ("se3_attend_kernel",),
             "C": ("proj_wgmma_kernel", "performer_proj_kernel", "favor_wgmma_kernel",
                   "favor_f32_kernel", "out_wgmma_kernel", "performer_out_kernel"),
             "D": ("ff_wgmma_kernel", "fused_ff_kernel"),
-            "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel")}
+            "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel"),
+            "G": ("tied_bwd_dsum_kernel", "tied_bwd_sdp_kernel", "tied_bwd_grad_kernel",
+                  "dkv_f32_kernel", "dq_f32_kernel")}
 # ms a call the wrappers' host side takes is timed over this many calls
 HOST_CALLS = 50
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, float32 CUDA
-# cores, HBM3
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+# cores, TF32 tensor cores in three passes (B's float32 products), HBM3
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 HBM_BYTES_S = 3.35e12
 
 
@@ -471,6 +479,8 @@ def phase_se3(res):
             args = (feat, basis, h, mask, qh, stacked, mod.meta)
             res.case("se3_attend", f"{name} B={B} L={L}", sa.gse3_attend, sa.se3_attend_plain,
                      args, "float32", main=name == "res_1", work_share=share)
+            if name == "res_1":
+                _se3_device(res, "se3_attend", f"{name} B={B} L={L}", sa, args, share)
 
 
 def phase_se3_gather(res):
@@ -513,12 +523,30 @@ def phase_se3_gather(res):
             ck = sum((m // mod.n_heads) * (2 * d + 1) for d, m in mod.f_mid_in.dict.items())
             qh = torch.randn(1, L, mod.n_heads * ck, generator=g).to(dev)
             main = (name, L, S) == ("res_1", 512, 272)
+            long = name == "res_1" and L == 1100  # phase 4b's long shapes
             with torch.no_grad():
                 args = (feat, basis, h, mask, qh, sa.stack_weights(mod.v, mod.k, mod.meta),
                         mod.meta, src)
-                res.case("se3_attend_gather", f"{name} L={L} S={S}", sa.gse3_attend,
-                         sa.se3_attend_plain, args, "float32", main=main, work_share=share,
-                         iters=10 if main else 3)
+                tag = f"{name} L={L} S={S}"
+                res.case("se3_attend_gather", tag, sa.gse3_attend, sa.se3_attend_plain, args,
+                         "float32", main=main, work_share=share, iters=10 if main else 3,
+                         by_shape=long)
+                if main or long:
+                    _se3_device(res, "se3_attend_gather", tag, sa, args, share,
+                                None if main else tag)
+
+
+def _se3_device(res, name, tag, sa, args, share, shape=None):
+    """B's device time a call (torch.profiler) and its bound on the 3xTF32
+    tensor-core line (495 / 3 TFLOP/s) beside the float32 line that `case`
+    records, into the main record or, with `shape`, that shape's record."""
+    out = sa.gse3_attend(*args)
+    dev = _device_ms(lambda: sa.gse3_attend(*args))
+    tc_ms, tc_by = bound(sa.se3_attend_plain, args, out, "tf32x3", share)
+    log(f"{name} {tag} float32: device time a call {dev:.4f} ms; bound on the 3xTF32 line"
+        f" {tc_ms:.4f} ms ({tc_by})")
+    rec = res.kernels[name] if shape is None else res.kernels[name]["by_shape"][shape]
+    rec.update(device_ms=dev, bound_tf32x3_ms=tc_ms)
 
 
 def phase_linear_attention(res):

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks for kernels that stage operands by TMA
-// and multiply them with wgmma (kernels F, A, C's three launches and D):
+// or cp.async and multiply them with wgmma (kernels F, A, B, C's three
+// launches, D and G):
 //  * shared-memory addresses, mbarriers (init, arrive, expect_tx, a bounded
 //    parity wait) and named barriers;
 //  * TMA tiled loads (2-D, 3-D and 4-D) that complete on an mbarrier, and a
@@ -8,13 +9,17 @@
 //    step and one thread acts (a branch around them diverges the warpgroup,
 //    and ptxas then serialises its wgmmas);
 //  * wgmma: the shared-memory descriptors of a K-major and an MN-major
-//    operand in the 128-byte swizzle, fence / commit / wait, and `Wgmma<N>`
-//    (m64nNk16 bf16, N = 64, 128, 144, 256): A in shared memory (ss) or in
-//    registers (rs), B in shared memory K-major or MN-major;
+//    operand in the 128-byte swizzle, fence / commit / wait, `Wgmma<N>`
+//    (m64nNk16 bf16, N = 64, 128, 144, 256): A in shared memory (ss, K-major
+//    or MN-major) or in registers (rs), B in shared memory K-major or
+//    MN-major; and `WgmmaTf32<N>` (m64nNk8 tf32, N = 32, 64; K-major only)
+//    with the split of a float32 into two TF32 parts for 3-pass products;
 //  * rows of the pair width (288) as a warpgroup holds them: a LayerNorm
 //    straight into wgmma A fragments, the epilogue of a 64 x 288
 //    accumulator (bias, residual, 16-byte row stores through shared memory),
 //    and a bulk prefetch of rows into L2;
+//  * cp.async copies of 4 and 16 bytes that zero-fill where a predicate
+//    is false;
 //  * the card's SM count;
 //  * the host's cuTensorMapEncodeTiled, reached through the runtime's
 //    driver entry point (no link against libcuda).
@@ -210,9 +215,10 @@ struct Wgmma;
 
 template <>
 struct Wgmma<64> {
-  // d (64 x 64) = (scale_d ? d : 0) + A . B; A K-major in shared memory, B
-  // in shared memory: K-major (TRANS_B 0) or MN-major (TRANS_B 1)
-  template <int TRANS_B = 0>
+  // d (64 x 64) = (scale_d ? d : 0) + A . B; A in shared memory: K-major
+  // (TRANS_A 0) or MN-major (TRANS_A 1); B in shared memory: K-major
+  // (TRANS_B 0) or MN-major (TRANS_B 1)
+  template <int TRANS_B = 0, int TRANS_A = 0>
   __device__ __forceinline__ static void ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
                                             uint32_t scale_d) {
     asm volatile(
@@ -221,14 +227,14 @@ struct Wgmma<64> {
         "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
         "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
         "%24, %25, %26, %27, %28, %29, %30, %31"
-        "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+        "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
   // d (64 x 64) = (scale_d ? d : 0) + A . B; A (64 x 16) in registers (the
   // accumulator layout, bf16 pairs), B in shared memory: K-major (TRANS_B 0)
@@ -255,9 +261,10 @@ struct Wgmma<64> {
 
 template <>
 struct Wgmma<128> {
-  // d (64 x 128) = (scale_d ? d : 0) + A . B; A K-major in shared memory, B
-  // in shared memory: K-major (TRANS_B 0) or MN-major (TRANS_B 1)
-  template <int TRANS_B = 0>
+  // d (64 x 128) = (scale_d ? d : 0) + A . B; A in shared memory: K-major
+  // (TRANS_A 0) or MN-major (TRANS_A 1); B in shared memory: K-major
+  // (TRANS_B 0) or MN-major (TRANS_B 1)
+  template <int TRANS_B = 0, int TRANS_A = 0>
   __device__ __forceinline__ static void ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
                                             uint32_t scale_d) {
     asm volatile(
@@ -269,7 +276,7 @@ struct Wgmma<128> {
         "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
         "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
         "%60, %61, %62, %63"
-        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        "}, %64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -281,7 +288,7 @@ struct Wgmma<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
   }
   // d (64 x 128) = (scale_d ? d : 0) + A . B; A (64 x 16) in registers (the
   // accumulator layout, bf16 pairs), B in shared memory: K-major (TRANS_B 0)
@@ -426,6 +433,67 @@ struct Wgmma<256> {
   }
 };
 
+// m64nNk8 tf32 -> float32 (N = 32, 64): the accumulator layout of Wgmma<N>.
+// TF32 operands are K-major only (the transpose bits exist for f16 / bf16
+// alone); a K-major tile of float32 rows of 32 values (128 bytes) in the
+// 128-byte swizzle has the layout of a bf16 tile of rows of 64, so
+// desc_sw128 describes it and a K step of 8 advances it by 32 bytes, as a
+// bf16 K step of 16 does. The tensor cores read the top 19 bits of each
+// value (tf32_split below).
+template <int N>
+struct WgmmaTf32;
+
+template <>
+struct WgmmaTf32<32> {
+  // d (64 x 32) = (scale_d ? d : 0) + A . B over K = 8; A and B K-major in
+  // shared memory
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+template <>
+struct WgmmaTf32<64> {
+  // d (64 x 64) = (scale_d ? d : 0) + A . B over K = 8; A and B K-major in
+  // shared memory
+  __device__ __forceinline__ static void ss(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+  }
+};
+
+// x = big + small for a 3-pass TF32 product: big is x cut to TF32 (its low
+// 13 mantissa bits cleared), small = x - big exactly (at most 13 significant
+// bits, of which the tensor cores read the top 11): big + small holds x to
+// 2^-21 of |x|, in two integer / float operations (no conversion)
+__device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
+  big = __uint_as_float(__float_as_uint(x) & 0xffffe000u);
+  small = x - big;
+}
+
 // ---- rows of the pair width -------------------------------------------------
 // A warpgroup of a pair-track kernel holds 64 rows of D = 288 values: thread
 // (warp w of the warpgroup, lane 4g + t) holds rows 16w + g and 16w + g + 8.
@@ -491,6 +559,20 @@ __device__ __forceinline__ void ln_a_fragments(uint32_t (&a)[PAIR_KSTEPS][4],
 // (both 16-byte aligned), and the wait for all of this thread's such copies.
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+
+// 4 or 16 bytes from global to shared memory, or zeros where `valid` is 0
+// (the source is then not read, but must be an address)
+__device__ __forceinline__ void cp_async_4z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_16z(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(valid ? 16 : 0)
                : "memory");
 }
 

@@ -10,9 +10,10 @@ Dense layout: source slot s is node s, so S == L. Gather layout: src_idx
 h[b, src_idx[b, j, s]] in place (JAX gathers per-edge planes for Mosaic's
 layout, `gather_h_planes`; nothing is gathered into device memory here), and
 never reads the index of a masked slot. Returns {d: (B, J, m_v, 2d+1)}: the
-GMABSE3 output. float32. The backward is JAX's (`_bwd_rule`): the vjp of the
-plain version, recomputed; on the gather layout it reaches h through the
-gather.
+GMABSE3 output. float32 (the kernel's radial MLPs run as 3-pass TF32 products
+on the tensor cores; it takes the stacked weights as they lie, all K-major).
+The backward is JAX's (`_bwd_rule`): the vjp of the plain version, recomputed;
+on the gather layout it reaches h through the gather.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ gather_launches = 0  # gather-layout (src_idx) kernel launches
 
 MID = 32
 MAX_PAIRS = 8
+MAX_HEADS = 16
 
 
 def _ceil_to(x, m):
@@ -246,17 +248,23 @@ def _launch(feat, basis, h, mask, qh, stacked, meta: Meta, src_idx=None):
     L = h[0].shape[1]
     if len(meta.pairs) > MAX_PAIRS:
         raise ValueError(f"{len(meta.pairs)} degree pairs > {MAX_PAIRS}")
-    w1t, misc, w2t, w3t, w3b = stacked
+    if meta.n_heads > MAX_HEADS:
+        raise ValueError(f"{meta.n_heads} heads > {MAX_HEADS}")
+    if not 32 <= meta.ed < 96:
+        raise ValueError(f"edge feature width {meta.ed} outside [32, 96)")
+    # the stacked weights as they lie: K-major, the layout TF32 wgmma takes
     args = [feat, basis["0,0"], basis["0,1"], basis["1,0"], basis["1,1"], h[0], h[1],
-            mask, qh, w1t.t().contiguous(), misc, w2t, w3t, w3b]
+            mask, qh, *stacked]
     if not all(t.is_contiguous() for t in args) or not (
             src_idx is None or src_idx.is_contiguous()):
         raise ValueError("SE(3) attend kernel needs contiguous inputs")
     km = _kernel_meta(meta)
     lib = build.load("se3_attend")
     lib.se3_attend_smem_bytes.restype = ctypes.c_size_t
-    lib.se3_attend_smem_bytes.argtypes = [ctypes.c_int] * 5
-    smem = lib.se3_attend_smem_bytes(S, km.nv, km.nk, km.H, km.ck)
+    lib.se3_attend_smem_bytes.argtypes = [ctypes.c_int] * 8
+    # the least a launch needs: a block a destination, each listing <= 2 S edges
+    smem = lib.se3_attend_smem_bytes(S, km.nv, km.H, km.ck, km.m_in[0], km.m_in[1], meta.ed,
+                                     2 * S)
     if smem > 227 * 1024:
         raise ValueError(f"S={S} needs {smem} bytes of shared memory (> 227 KB)")
     out = torch.empty((B, J, km.nv), dtype=torch.float32, device=feat.device)

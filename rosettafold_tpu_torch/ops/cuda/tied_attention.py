@@ -7,7 +7,8 @@ Port of rosettafold_tpu/ops/pallas/tied_attention.py: q, k (BH, L, ND); v
 float32 and bfloat16 inputs; float32 accumulation. `tied_flash_attention` is
 differentiable: its backward is G from the saved (q, k, v, out, lse), as
 JAX's custom VJP. `launches` counts A, `bwd_launches` counts G (each call
-three CUDA launches: dsum, dk/dv, dq).
+three CUDA launches: dsum, then in bfloat16 p / ds and dk / dv / dq, in
+float32 dk / dv and dq).
 """
 
 from __future__ import annotations
@@ -22,6 +23,9 @@ launches = 0  # kernel A launches made by this process
 bwd_launches = 0  # kernel G launches made by this process
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# G's bf16 scratch (p and ds as bf16 high parts and remainders, 8 L^2 bytes a
+# (b, head)) is held to this size: larger B*H*L^2 runs over chunks of B*H
+BWD_SCRATCH_BYTES = 256 << 20
 
 
 def _check(q, k, v):
@@ -119,6 +123,24 @@ def tied_attention_bwd_plain(q, k, v, out, lse, g):
     return dq.to(q.dtype), dk.to(q.dtype), dv.to(v.dtype)
 
 
+def _ceil_to(x, m):
+    return -(-x // m) * m
+
+
+_backward = None  # the backward's C function, its argument types set once
+
+
+def _backward_fn():
+    global _backward
+    if _backward is None:
+        fn = build.load("tied_attention_bwd").tied_attention_bwd
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+        _backward = fn
+    return _backward
+
+
 def _launch_bwd(q, k, v, out, lse, g):
     global bwd_launches
     BH, L, ND = q.shape
@@ -132,11 +154,16 @@ def _launch_bwd(q, k, v, out, lse, g):
         return dq, dk, dv
     lib = build.load("tied_attention_bwd")
     dsum = torch.empty((BH, L), dtype=torch.float32, device=q.device)
-    fn = lib.tied_attention_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    rc = fn(*(build.ptr(t) for t in (q, k, v, out, lse, g, dsum, dq, dk, dv)),
-            BH, L, ND, NDv, _DTYPES[q.dtype], build.stream_of(q))
+    bh_chunk, scratch = 0, None
+    if q.dtype == torch.bfloat16:
+        per_bh = 4 * L * _ceil_to(L, 8)  # bf16 values a (b, head)
+        bh_chunk = max(1, min(BH, BWD_SCRATCH_BYTES // (2 * per_bh)))
+        scratch = torch.empty(bh_chunk * per_bh, dtype=torch.bfloat16, device=q.device)
+    fn = _backward_fn()
+    rc = fn(*(build.ptr(t) for t in (q, k, v, out, lse, g, dsum)),
+            None if scratch is None else scratch.data_ptr(), bh_chunk,
+            *(build.ptr(t) for t in (dq, dk, dv)), BH, L, ND, NDv, _DTYPES[q.dtype],
+            build.stream_of(q))
     build.check(lib, rc, "tied_attention_bwd")
     bwd_launches += 1
     return dq, dk, dv

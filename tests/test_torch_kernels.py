@@ -268,6 +268,107 @@ def test_se3_kernel_matches_plain_on_card(cuda, name):
         torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
 
 
+def _se3_card_inputs(cuda, name, L, k, S=None, B=1, seed=0, edge_dim=EDGE_DIM):
+    """A GSE3Res layer with random weights and its kernel B operands on the
+    card: the dense kNN layout (S == L) or, with S, the bucket (gather)
+    layout of a random-walk backbone with capacity S."""
+    f_in_d, f_out_d, div, heads = SE3_LAYERS[name]
+    g = torch.Generator().manual_seed(seed)
+    mod = tse3.GSE3Res(tse3.Fiber(f_in_d), tse3.Fiber(f_out_d), edge_dim, div, heads,
+                       impl="pallas")
+    init_like_flax(mod, g)
+    mod = mod.to(cuda)
+    xyz = torch.cumsum(torch.randn(B, L, 3, 3, generator=g) * 2.2, 1).to(cuda)
+    aa = torch.arange(L, device=cuda)[None].repeat(B, 1)
+    ca = xyz[:, :, 1]
+    if S is None:
+        src = None
+        mask = tknn.incoming_mask(tknn.knn_adjacency(xyz, aa, k)).contiguous()
+        rel = ca[:, :, None, :] - ca[:, None, :, :]
+    else:
+        src, mask, _ = tknn.knn_bucket_indices(xyz, aa, k, capacity=S)
+        rel = torch.stack([ca[b][:, None] - ca[b][src[b].long()] for b in range(B)])
+    n_slots = mask.shape[-1]
+    basis = {key: v.contiguous() for key, v in tso3.equivariant_basis(rel, 1).items()}
+    feat = torch.cat([torch.randn(B, L, n_slots, edge_dim, generator=g).to(cuda),
+                      tso3.edge_radii(rel)], -1).contiguous()
+    h = {d: torch.randn(B, L, m, 2 * d + 1, generator=g).to(cuda) for d, m in f_in_d.items()}
+    ck = sum((m // heads) * (2 * d + 1) for d, m in mod.f_mid_in.dict.items())
+    qh = torch.randn(B, L, heads * ck, generator=g).to(cuda)
+    with torch.no_grad():
+        stacked = tatt.stack_weights(mod.v, mod.k, mod.meta)
+    return [feat, basis, h, mask, qh, stacked, mod.meta, src]
+
+
+def _se3_check_on_card(args):
+    """Kernel B against its plain version at the JAX kernel test's 2e-5, one
+    launch counted on the layout's counter."""
+    gather = args[-1] is not None
+    with torch.no_grad():
+        before = (tatt.launches, tatt.gather_launches)
+        z = tatt.gse3_attend(*args)
+        ref = tatt.se3_attend_plain(*args)
+    torch.cuda.synchronize()
+    assert (tatt.launches, tatt.gather_launches) == (before[0] + (not gather),
+                                                      before[1] + gather)
+    for d in ref:
+        torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SE3_LAYERS))
+@pytest.mark.parametrize("L", [128, 250])
+def test_se3_kernel_dense_serving_shapes_on_card(cuda, name, L):
+    """The dense layout at the serving L = 128 (B = 2) and at L = 250 (S no
+    multiple of the 64-edge tiles)."""
+    _se3_check_on_card(_se3_card_inputs(cuda, name, L, 64, B=2 if L == 128 else 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge_dim", [32, 40])
+def test_se3_kernel_edge_widths_on_card(cuda, edge_dim):
+    """Edge features of 33 and 41 columns (the tiny config's d_edge 32 + the
+    radius): one 32-column chunk on the tensor cores, 1 and 9 columns past it
+    in float32."""
+    _se3_check_on_card(_se3_card_inputs(cuda, "res_0", 96, 16, B=2, edge_dim=edge_dim))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gather", [False, True])
+def test_se3_kernel_empty_and_single_edge_destinations_on_card(cuda, gather):
+    """A destination with no unmasked edge gives 0; one with exactly one
+    edge gives that edge's value message (weight 1)."""
+    args = _se3_card_inputs(cuda, "res_1", 96, 16, S=48 if gather else None, B=4)
+    mask = args[3].clone()
+    mask[0, 0] = False
+    mask[0, 1] = False
+    mask[0, 1, 5] = True
+    mask[0, 7:12] = False  # a run of empty destinations
+    args[3] = mask
+    if gather:  # the slot made valid names a node
+        args[-1] = args[-1].clone()
+        args[-1][0, 1, 5] = 3
+    z = _se3_check_on_card(args)
+    for d in z:
+        assert bool((z[d][0, 0] == 0).all()) and bool((z[d][0, 7:12] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(SE3_LAYERS))
+@pytest.mark.parametrize("L,S,k", [(512, 80, 32), (512, 272, 128)])
+def test_se3_gather_kernel_ignores_masked_indices_on_card(cuda, name, L, S, k):
+    """The gather layout at the long requests' bucket capacities, with
+    garbage (out-of-range) indices in every masked slot: never read."""
+    args = _se3_card_inputs(cuda, name, L, k, S=S)
+    src, mask = args[-1], args[3]
+    garbage = torch.randint(-(1 << 30), 1 << 30, src.shape, generator=torch.Generator()
+                            .manual_seed(1)).to(cuda, torch.int32)
+    args[-1] = torch.where(mask, src, garbage).contiguous()
+    assert bool((args[-1][~mask] >= L).any()) or bool((args[-1][~mask] < 0).any())
+    _se3_check_on_card(args)
+
+
 def _h_inputs(P, L, dh, m, seed=0):
     """Kernel H's operands: q, k at dh^-0.25 of unit variance, v unit, the
     seed-0 FAVOR+ projection (m, dh)."""
@@ -828,6 +929,32 @@ def test_tied_backward_kernel_matches_plain_on_card(cuda, shape, dtype, forward)
     assert ttied.bwd_launches == before + 1
     for a, b in zip(got, want):
         _close_grad(a, b, 3e-5, 0.0, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [77, 250])
+@pytest.mark.parametrize("N", [8, 16, 64])
+def test_tied_backward_kernel_msa_depths_on_card(cuda, L, N, dtype):
+    """G at ragged L and at MSA depths N = 8, 16, 64 (ND = 32 N up to 2048:
+    launches 2 and 3 of the bf16 path at 4-16 column slices), from kernel A's
+    out and lse. Both dtypes hold the absolute term at max(1, max|ref|)
+    times the gradient tolerance: at ND = 2048 the gradients reach 50-75,
+    and float32 summation order alone moves them by ~3e-5."""
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in _qkv(5, L, 32 * N, 32 * N))
+    out, lse = ttied.tied_attention_forward(q, k, v)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0)).to(cuda, dtype)
+    before = ttied.bwd_launches
+    got = ttied.tied_attention_backward(q, k, v, out, lse, g)
+    want = ttied.tied_attention_bwd_plain(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert ttied.bwd_launches == before + 1
+    for a, b in zip(got, want):
+        if dtype == torch.float32:
+            scale = max(1.0, float(b.abs().max()))
+            torch.testing.assert_close(a, b, atol=3e-5 * scale, rtol=0.0)
+        else:
+            _close_grad(a, b, 3e-5, 0.0, dtype)
 
 
 def _close_grad(out, ref, atol, rtol, dtype):
