@@ -46,11 +46,14 @@ Phases (any failure exits non-zero and prints no result line):
      (`bound`); at A's main shape also A's and SDPA's device time
      (torch.profiler), at C's each of its three launches' device time beside
      its own bound (`launches_ms`, `launch_bound_ms`), at D's its device time
-     beside its bound (`device_ms`, `launch_bound_ms`);
+     beside its bound (`device_ms`, `launch_bound_ms`), E's device time at the
+     main shape and at L=1100, N=32 (`device_ms`);
   3b. the backward kernels against their plain backward versions, float32
      and bfloat16: tied attention's (G) at L in {128, 250}, N in {8, 16},
-     B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over both axes, with and without LN,
-     at L=128 (B=4) and L=250 (B=1); F's float32-output input gradient at
+     B*H = 48, from kernel A's output and lse; the FAVOR+ layer's (C') over
+     both axes, with and without LN, at L=128 (B=4) and L=250 (B=1), at the
+     main shape each of its five launches' device time beside its own bound
+     (`launches_ms`, `launch_bound_ms`); F's float32-output input gradient at
      dilations 1/2/4/8; the same logs, and the library yardsticks (SDPA's
      backward through torch.autograd.grad, which accumulates into no .grad;
      cuDNN's conv input gradient at each dilation); at G's main shape also
@@ -81,8 +84,7 @@ Phases (any failure exits non-zero and prints no result line):
      path's neighborhoods;
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
      busy share and the top device-time operators; every profile (4b, 6, 7)
-     also logs kernels A's, C's, D's and F's device kernels: calls and ms a
-     call;
+     also logs the device kernels of A-G (PROFILED): calls and ms a call;
   7. training: train.loop.fit with bench_train.py's configuration (bf16,
      kernels, dense SE(3), remat, dropout 0.1, bf16 first moments) on a
      synthetic (A3M, PDB) pair, at B=1 / n_seq 8 / crop 128 and B=4 / n_seq
@@ -177,16 +179,24 @@ BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 # device kernels of A (csrc/tied_attention.cu: the bf16 one-launch kernel at
 # L <= 128, 64 < NDv <= 256, the bf16 logits and P.V launches, the float32
 # kernel), B (csrc/se3_attend.cu, both layouts), C (csrc/fused_performer.cu:
-# the bf16 and float32 projection, FAVOR+ and output launches), D
-# (csrc/fused_ff.cu: bf16, float32), F (csrc/conv3x3.cu: the bf16 conv, its
-# pre-op launch, the float32 conv) and G (csrc/tied_attention_bwd.cu: dsum,
-# the bf16 p / ds and gradient launches, the float32 ones); each profile logs
-# their calls and time
+# the bf16 q/k/v projection (csrc/performer_wg.cuh, which C' also launches
+# for its q/k/v), FAVOR+ and output launches, the float32 ones), C'
+# (csrc/fused_performer_bwd.cu: the bf16 go projection, FAVOR+ backward, dx,
+# weight-gradient partials, their sum, the float32 ones), D (csrc/fused_ff.cu:
+# bf16, float32), E (csrc/outer_product.cu: bf16, float32), F
+# (csrc/conv3x3.cu: the bf16 conv, its pre-op launch, the float32 conv) and G
+# (csrc/tied_attention_bwd.cu: dsum, the bf16 p / ds and gradient launches,
+# the float32 ones); each profile logs their calls and time (a name matches
+# the kernels whose name holds it)
 PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "tied_fwd_f32"),
             "B": ("se3_attend_kernel",),
-            "C": ("proj_wgmma_kernel", "performer_proj_kernel", "favor_wgmma_kernel",
-                  "favor_f32_kernel", "out_wgmma_kernel", "performer_out_kernel"),
+            "C": ("proj_wgmma_kernel<24, false>", "performer_proj_kernel", "favor_wgmma_kernel",
+                  "favor_f32_kernel", "out_wgmma_kernel<8>", "performer_out_kernel"),
+            "C'": ("proj_wgmma_kernel<8, true>", "favor_bwd_wgmma_kernel", "out_wgmma_kernel<24>",
+                   "wgrad_wgmma_kernel", "wgrad_reduce_kernel", "::proj_kernel<float>",
+                   "::favor_kernel<float>", "::dx_kernel<float>", "::wgrad_kernel<float>"),
             "D": ("ff_wgmma_kernel", "fused_ff_kernel"),
+            "E": ("opm_wgmma_kernel", "opm_f32_kernel"),
             "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel"),
             "G": ("tied_bwd_dsum_kernel", "tied_bwd_sdp_kernel", "tied_bwd_grad_kernel",
                   "dkv_f32_kernel", "dq_f32_kernel")}
@@ -637,15 +647,24 @@ def phase_pair_kernels(res):
                      iters=10 if main else iters)
             if main:
                 _ff_launch(res, lambda a=args: ff.fused_ln_ff_residual(*a), B * L * L)
-            # E
+            # E; its device time at the main shape and at the longest request
             for N in Ns:
                 xo = _normal((B, N, L, 32), 1.0, g)
                 yo = (xo * torch.rand(B, N, L, 1, generator=g, device="cuda")).to(dt)
                 args = (xo, yo, 1.0 + _normal((1024,), 0.1, g), _normal((1024,), 0.1, g),
                         _normal((1024, D), 1 / 32, g, dt), _normal((D,), 0.1, g), 1e-5, dt)
-                res.case("outer_product", f"{shape} N={N}", op.fused_outer_product_mean,
+                tag = f"{shape} N={N}"
+                res.case("outer_product", tag, op.fused_outer_product_mean,
                          _in_rows(op.outer_product_plain, rows, 2, 1), args, dname,
-                         main=main and N == 8, iters=10 if main and N == 8 else iters)
+                         main=main and N == 8, iters=10 if main and N == 8 else iters,
+                         by_shape=rows is not None)
+                if (main and N == 8) or (rows is not None and L == LONG_PATH[-1][0]):
+                    ms = _device_ms(lambda a=args: op.fused_outer_product_mean(*a),
+                                    "opm_wgmma_kernel", calls=10 if main else 3)
+                    log(f"outer_product {tag} bfloat16: device time {ms:.4f} ms a call")
+                    require(ms > 0, "no device time for E in the profile")
+                    rec = res.kernels["outer_product"]
+                    (rec if main else rec["by_shape"][tag])["device_ms"] = ms
             # F; at the main shape cuDNN's conv at each dilation (channels_last, no
             # pre-op; 24 of the 32 head-tower calls are dilated); in bf16 the
             # pre-op's cost (F with it against F without it)
@@ -758,6 +777,44 @@ def _performer_launches(res, call, P, L):
             f" {bounds[k]:.4f} ms ({by})")
         require(ms[k] > 0, f"no device time for C's {k} launch in the profile")
     res.kernels["fused_performer"].update(launches_ms=ms, launch_bound_ms=bounds)
+
+
+def _performer_bwd_launches(res, call, P, L):
+    """C''s five launches at P problems of L positions (the row step without
+    LN, bf16): device time a call (torch.profiler over 5 calls) and each
+    launch's bound: the matrix products of its part of the plain backward
+    over the bf16 peak against its own inputs and outputs (the scratch
+    included) over HBM."""
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+
+    M, D, HD, MF, DH, H = P * L, 288, 512, 320, 64, 8
+    splits = fp.wgrad_splits(P, L)
+    w_elems = 3 * D * HD + (HD + 1) * D
+    flops = {"proj": 2 * M * D * 4 * HD,
+             # s_q, s_k; ctx, num, g_phi_q, g_ctx, g_phi_k (dh + 1 wide); gq, gk, gv
+             "favor": P * H * 2 * L * MF * (2 * DH + 5 * (DH + 1) + 3 * DH),
+             "dx": 2 * M * 3 * HD * D,
+             "wgrad": 2 * M * D * 4 * HD,
+             "reduce": 0}
+    nbytes = {"proj": 2 * 2 * M * D + 2 * 4 * HD * D + 2 * M * 3 * HD + 4 * M * HD,
+              "favor": (2 * M * 3 * HD + 4 * M * HD + 2 * MF * DH + 2 * M * HD + 2 * M * 3 * HD
+                        + 2 * (2 * M * HD + 4 * M * H)),  # gnum_ext out and back
+              "dx": 2 * M * 3 * HD + 2 * D * 3 * HD + 2 * M * D,
+              "wgrad": 2 * 2 * M * D + 2 * M * 3 * HD + 2 * M * HD + 4 * splits * w_elems,
+              "reduce": 4 * (splits + 1) * w_elems}
+    names = {"proj": "proj_wgmma_kernel", "favor": "favor_bwd_wgmma_kernel",
+             "dx": "out_wgmma_kernel", "wgrad": "wgrad_wgmma_kernel",
+             "reduce": "wgrad_reduce_kernel"}
+    ms, bounds = {}, {}
+    for k, name in names.items():
+        ms[k] = _device_ms(call, name, calls=5)
+        t_ops, t_bytes = flops[k] / PEAK_FLOPS["bfloat16"], nbytes[k] / HBM_BYTES_S
+        bounds[k] = max(t_ops, t_bytes) * 1e3
+        log(f"fused_performer_bwd launch {k} ({name}): {ms[k]:.4f} ms a call, bound"
+            f" {bounds[k]:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})")
+        require(ms[k] > 0, f"no device time for C''s {k} launch in the profile")
+    res.kernels["fused_performer_bwd"].update(launches_ms=ms, launch_bound_ms=bounds,
+                                              device_ms=sum(ms.values()))
 
 
 def _ff_launch(res, call, M):
@@ -911,6 +968,8 @@ def phase_backward_kernels(res):
                              f"B={B} L={L} axis {axis} {'LN+residual' if with_ln else 'no LN'}",
                              kernel, plain, (xin, gin, *w), dname, main=main,
                              iters=5 if main else 2, grad=True)
+                    if main:
+                        _performer_bwd_launches(res, lambda a=(xin, gin, *w): kernel(*a), B * L, L)
         for dname in ("float32", "bfloat16"):
             dt = _dt(dname)
             gc = _normal((B, L, L, D), 1.0, g, dt)

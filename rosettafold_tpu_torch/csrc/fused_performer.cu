@@ -36,37 +36,19 @@
 // the split.
 //
 // The proj and out launches in bfloat16 (proj_wgmma_kernel,
-// out_wgmma_kernel) are bound by bytes (the 201 MB q/k/v write at B=4,
-// L=128; att, x and out), and their weights (884 KB and 295 KB) are read
-// from L2 by every block. A block of 256 threads owns 128 rows, two
-// warpgroups of 64, so a weight chunk read once serves 128 rows; weights
-// stream by TMA through full / empty mbarrier rings, issued ahead by thread
-// 0 with every thread running the issue code in step (a branch around it
-// serialises the wgmmas):
-//  * proj: each thread reads its two rows of x in place through `Rows` (the
-//    4-byte pairs it holds in a wgmma A operand: LN needs every value in
-//    registers anyway, and a tile of 64 rows crosses a problem's end where L
-//    is no multiple of 64, which a TMA box cannot follow) and keeps
-//    Y = LN(x) as bf16 A fragments (72 registers) for all
-//    24 chunks of 64 output columns: m64n64k16 rs (only B is read from
-//    shared memory), Wq | Wk | Wv K-major (their nn.Linear layout), 40 KB a
-//    chunk (K = 288 is 4.5 boxes of 64) in a 4-stage ring; two accumulators,
-//    so a chunk's epilogue (scale, bf16, a swizzled tile, a TMA store into
-//    the q/k/v scratch) can overlap the next chunk's products;
-//  * out: a persistent grid (a block an SM) walks tiles of 128 rows; att
-//    tiles (TMA, 64 rows x 64 of K a warpgroup) and Wo (K-major, its
-//    nn.Linear layout, 64 of K x 288 a stage) come through a 3-stage ring
-//    whose loads run on into the next tile during a tile's epilogue; each
-//    warpgroup holds 64 rows x 288 in two m64n144 accumulators (both operands
-//    in shared memory), one K block's products in flight; the epilogue
-//    stages each half of the rows in shared memory and reads x (bulk
-//    prefetched into L2 when the tile starts) and writes out through `Rows`
-//    as whole 16-byte vectors.
+// out_wgmma_kernel, csrc/performer_wg.cuh, shared with kernel C') are bound
+// by bytes (the 201 MB q/k/v write at B=4, L=128; att, x and out), and their
+// weights (884 KB and 295 KB) are read from L2 by every block: a block owns
+// 128 rows, two warpgroups of 64, so a weight chunk read once serves 128
+// rows. proj keeps LN(x) as bf16 A fragments in registers for all 24 chunks
+// of 64 output columns and TMA-stores the q/k/v tiles; out walks tiles of
+// 128 rows on a persistent grid, att and Wo through a TMA ring.
 // float32 runs the proj and out launches on the CUDA cores (mma.sync tiles
 // of common.cuh: performer_proj_kernel, performer_out_kernel).
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "performer_wg.cuh"
 
 using namespace rf;
 
@@ -275,22 +257,6 @@ constexpr int BAR_OFF = DEN_OFF + MF * 4;
 constexpr int NBARS = 1 + 2 * KV_STAGES + NWG * Q_STAGES;
 constexpr size_t SMEM = 1024 + BAR_OFF + 8 * NBARS;
 
-// relu(d) + eps as bf16 pairs into the A fragments of K step ks; columns at
-// or past `valid` are zero. sum[h] gains the rounded values of row half h.
-__device__ __forceinline__ void features(uint32_t (&a)[4][4], const float (&d)[32], float eps,
-                                         int valid, int t, float (&sum)[2]) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks)
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int col = 16 * ks + 8 * (k >> 1) + 2 * t, e = 8 * ks + 2 * k;
-      a[ks][k] = pack_bf16(col < valid ? fmaxf(d[e], 0.f) + eps : 0.f,
-                           col + 1 < valid ? fmaxf(d[e + 1], 0.f) + eps : 0.f);
-      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]);
-      sum[k & 1] += __low2float(v) + __high2float(v);
-    }
-}
-
 __global__ void __launch_bounds__(NT, 1)
 favor_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
                    const __grid_constant__ CUtensorMap p_map, float kernel_eps,
@@ -376,7 +342,7 @@ favor_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
       wgmma_commit();
       wgmma_wait<0>();
       uint32_t a[4][4];
-      features(a, d, kernel_eps, L - c * LC, t, den);
+      favor_features(a, d, kernel_eps, L - c * LC, t, den);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
@@ -426,7 +392,7 @@ favor_wgmma_kernel(const __grid_constant__ CUtensorMap qkv_map,
         wgmma_wait<0>();
         uint32_t a[4][4];
         float unused[2] = {0.f, 0.f};
-        features(a, d, kernel_eps, LC, t, unused);
+        favor_features(a, d, kernel_eps, LC, t, unused);
 #pragma unroll
         for (int ks = 0; ks < 4; ++ks)
 #pragma unroll
@@ -525,296 +491,6 @@ performer_out_kernel(const T* __restrict__ att, const T* __restrict__ wo,
   });
 }
 
-// ------------------------------------ 1 and 3 in bfloat16: TMA + wgmma
-namespace proj_wg {
-
-using namespace rf::hopper;
-
-constexpr int NWG = 2;                // warpgroups a block, 64 rows each
-constexpr int BM = 64 * NWG;
-constexpr int NTHREADS = 128 * NWG;
-constexpr int NCHUNK = 3 * HD / 64;   // chunks of 64 output columns
-constexpr int W_BOX = 64 * 128;       // 64 columns (N) x 64 of K, K-major
-constexpr int W_STAGE = 5 * W_BOX;    // K = 288: 4.5 boxes (TMA zero-fills the half)
-constexpr int STAGES = 4;
-constexpr int OUT_TILE = 64 * 128;    // 64 rows x 64 columns, 128-byte swizzle
-// shared memory from a 1024-byte boundary
-constexpr int W_OFF = 0;
-constexpr int OUT_OFF = W_OFF + STAGES * W_STAGE;      // two tiles a warpgroup
-constexpr int BAR_OFF = OUT_OFF + NWG * 2 * OUT_TILE;  // full, empty: STAGES each
-constexpr size_t SMEM = 1024 + BAR_OFF + 2 * STAGES * 8;
-
-__global__ void __launch_bounds__(NTHREADS, 1)
-proj_wgmma_kernel(const __grid_constant__ CUtensorMap wq_map,
-                  const __grid_constant__ CUtensorMap wk_map,
-                  const __grid_constant__ CUtensorMap wv_map,
-                  const __grid_constant__ CUtensorMap qkv_map, const bf16* __restrict__ x,
-                  Rows rows_, const float* __restrict__ gamma, const float* __restrict__ beta,
-                  float ln_eps, float scale, long long M) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t base = smem_u32(smem);
-  const uint32_t full = base + BAR_OFF, empty = full + 8 * STAGES;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
-  const uint32_t leader = threadIdx.x == 0, wg_leader = (threadIdx.x & 127) == 0;
-  const long long row0 = (long long)blockIdx.x * BM + 64 * wg;  // the warpgroup's rows
-  const int valid = (int)max(0LL, min(64LL, M - row0));
-
-  if (leader) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, NTHREADS / 32);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  // the weight chunks in order (Wq, Wk, Wv, 8 each), a stage refilled once
-  // every warpgroup has released it
-  int n = 0;
-  auto issue = [&](int released) {
-    for (; n < NCHUNK && n < released + STAGES; ++n) {
-      const int s = n % STAGES;
-      mbar_wait(empty + 8 * s, ((n / STAGES) & 1) ^ 1);
-      const CUtensorMap* map = n < 8 ? &wq_map : (n < 16 ? &wk_map : &wv_map);
-      const uint32_t dst = base + W_OFF + s * W_STAGE;
-      mbar_arrive_expect_tx(full + 8 * s, W_STAGE, leader);
-#pragma unroll
-      for (int kb = 0; kb < 5; ++kb)
-        tma_load_2d(dst + kb * W_BOX, map, full + 8 * s, 64 * kb, 64 * (n % 8), leader);
-    }
-  };
-  issue(0);
-
-  // Y = LN(x) of the thread's two rows, as the A fragments of all 18 K steps
-  uint32_t ya[PAIR_KSTEPS][4];
-  {
-    const int rlo = 16 * wq + g;
-    ln_a_fragments(ya, rlo < valid ? x + rows_.offset(row0 + rlo) : nullptr,
-                   rlo + 8 < valid ? x + rows_.offset(row0 + rlo + 8) : nullptr, gamma, beta,
-                   ln_eps, t);
-  }
-
-  auto gemm = [&](float(&acc)[32], int j) {  // acc = Y . W[:, chunk j]
-    const int s = j % STAGES;
-    mbar_wait(full + 8 * s, (j / STAGES) & 1);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < PAIR_KSTEPS; ++ks)
-      Wgmma<64>::rs<0>(
-          acc, ya[ks],
-          desc_sw128(base + W_OFF + s * W_STAGE + (ks >> 2) * W_BOX + (ks & 3) * 32), ks > 0);
-    wgmma_commit();
-  };
-  // chunk j's products are done: release its stage, and store its columns
-  auto epilogue = [&](const float(&acc)[32], int j) {
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * (j % STAGES));
-    issue(j + 1);
-    const float sc = j < 16 ? scale : 1.f;  // q and k are scaled, v is not
-    const int buf = OUT_OFF + (2 * wg + (j & 1)) * OUT_TILE;
-    unsigned char* ot = smem + buf;
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = 16 * wq + g + 8 * h;
-        *reinterpret_cast<uint32_t*>(ot + r * 128 + ((i ^ (r & 7)) << 4) + 4 * t) =
-            pack_bf16(acc[4 * i + 2 * h] * sc, acc[4 * i + 2 * h + 1] * sc);
-      }
-    fence_proxy_async();
-    bulk_wait_read<0>(wg_leader);  // the last chunk's store has read its tile
-    named_barrier(1 + wg, 128);
-    tma_store_2d(&qkv_map, base + buf, 64 * j, (int)row0, wg_leader && valid > 0);
-    bulk_commit(wg_leader);
-  };
-  // two accumulators: chunk j's epilogue runs while chunk j + 1's products
-  // do; the last two chunks are peeled, so the loop body has no branch (with
-  // one, ptxas could not follow the wgmma groups and injected a wait, C7517)
-  float acc_a[32], acc_b[32];
-#pragma unroll
-  for (int e = 0; e < 32; ++e) acc_a[e] = acc_b[e] = 0.f;
-  gemm(acc_a, 0);
-  for (int j = 0; j < NCHUNK - 2; j += 2) {
-    gemm(acc_b, j + 1);
-    wgmma_wait<1>();
-    epilogue(acc_a, j);
-    gemm(acc_a, j + 2);
-    wgmma_wait<1>();
-    epilogue(acc_b, j + 1);
-  }
-  gemm(acc_b, NCHUNK - 1);
-  wgmma_wait<1>();
-  epilogue(acc_a, NCHUNK - 2);
-  wgmma_wait<0>();
-  epilogue(acc_b, NCHUNK - 1);
-  bulk_wait_read<0>(wg_leader);
-}
-
-static_assert(NCHUNK % 2 == 0, "the chunk loop takes two chunks a turn");
-
-cudaError_t launch(const bf16* x, Rows rows_, const float* gamma, const float* beta, float ln_eps,
-                   const bf16* wq, const bf16* wk, const bf16* wv, float scale, bf16* qkv,
-                   long long M, cudaStream_t st) {
-  // wq, wk, wv (512, 288) [column][d]: 64 of d x 64 columns a box
-  CUtensorMap maps[3], qkv_map;
-  const cuuint64_t wdims[2] = {D, HD}, wstrides[1] = {D * 2};
-  const cuuint32_t wbox[2] = {64, 64};
-  const bf16* w[3] = {wq, wk, wv};
-  cudaError_t err;
-  for (int i = 0; i < 3; ++i)
-    if ((err = encode_bf16_sw128(&maps[i], w[i], 2, wdims, wstrides, wbox)) != cudaSuccess)
-      return err;
-  const cuuint64_t qdims[2] = {3 * HD, (cuuint64_t)M}, qstrides[1] = {3 * HD * 2};
-  const cuuint32_t qbox[2] = {64, 64};
-  if ((err = encode_bf16_sw128(&qkv_map, qkv, 2, qdims, qstrides, qbox)) != cudaSuccess)
-    return err;
-  if ((err = set_smem(proj_wgmma_kernel, SMEM)) != cudaSuccess) return err;
-  const unsigned blocks = (unsigned)((M + BM - 1) / BM);
-  proj_wgmma_kernel<<<blocks, NTHREADS, SMEM, st>>>(maps[0], maps[1], maps[2], qkv_map, x,
-                                                      rows_, gamma, beta, ln_eps, scale, M);
-  return cudaGetLastError();
-}
-
-}  // namespace proj_wg
-
-namespace out_wg {
-
-using namespace rf::hopper;
-
-constexpr int BM = 128;                // rows a tile: two warpgroups of 64
-constexpr int NTHREADS = 256;
-constexpr int KB = HD / 64;            // K blocks of 64
-constexpr int A_TILE = 64 * 128;       // a warpgroup's 64 rows x 64 of K
-constexpr int W_STAGE = D * 128;       // 288 rows (N) x 64 of K, K-major: 36 KB
-constexpr int W_HALF = W_STAGE / 2;    // a TMA box and an m64n144's B: 144 rows
-constexpr int STAGE = 2 * A_TILE + W_STAGE;
-constexpr int STAGES = 3;
-static_assert(STAGES > 1, "one K block's products stay in flight");
-// shared memory from a 1024-byte boundary: the ring, each warpgroup's
-// epilogue staging, the tile's row offsets, the barriers (full, empty:
-// STAGES each)
-constexpr int ST_OFF = STAGES * STAGE;
-constexpr int ROFF_OFF = ST_OFF + 2 * PAIR_STAGE_BYTES;
-constexpr int BAR_OFF = ROFF_OFF + BM * 8;
-constexpr size_t SMEM = 1024 + BAR_OFF + 2 * STAGES * 8;
-
-// A persistent grid walks the tiles of 128 rows. Thread 0 issues the ring's
-// loads in the order the products take them over the block's tiles, so the
-// next tile's first K blocks arrive during a tile's epilogue.
-__global__ void __launch_bounds__(NTHREADS, 1)
-out_wgmma_kernel(const __grid_constant__ CUtensorMap att_map,
-                 const __grid_constant__ CUtensorMap wo_map, const float* __restrict__ bo,
-                 const bf16* __restrict__ x, bf16* __restrict__ out, Rows rows_, long long M,
-                 int residual, long long tiles) {
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const uint32_t base = smem_u32(smem);
-  const uint32_t full = base + BAR_OFF, empty = full + 8 * STAGES;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, wg = warp >> 2;
-  const int tid = threadIdx.x & 127;
-  const uint32_t leader = threadIdx.x == 0;
-  bf16* st = reinterpret_cast<bf16*>(smem + ST_OFF + wg * PAIR_STAGE_BYTES);
-
-  if (leader) {
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, NTHREADS / 32);
-    }
-    fence_mbar_init();
-  }
-  __syncthreads();
-
-  long long ld_tile = blockIdx.x;  // the next load's tile and K block
-  int ld_kb = 0, n = 0;
-  auto issue = [&](int released) {
-    while (ld_tile < tiles && n < released + STAGES) {
-      const int s = n % STAGES;
-      mbar_wait(empty + 8 * s, ((n / STAGES) & 1) ^ 1);
-      const int blk = (int)(ld_tile * BM);
-      const uint32_t two = blk + 64 < M;  // warpgroup 1 may have no rows
-      const uint32_t dst = base + s * STAGE, bar = full + 8 * s;
-      mbar_arrive_expect_tx(bar, W_STAGE + (1 + two) * A_TILE, leader);
-      tma_load_2d(dst, &att_map, bar, 64 * ld_kb, blk, leader);
-      tma_load_2d(dst + A_TILE, &att_map, bar, 64 * ld_kb, blk + 64, leader && two);
-      tma_load_2d(dst + 2 * A_TILE, &wo_map, bar, 64 * ld_kb, 0, leader);
-      tma_load_2d(dst + 2 * A_TILE + W_HALF, &wo_map, bar, 64 * ld_kb, D / 2, leader);
-      ++n;
-      if (++ld_kb == KB) {
-        ld_kb = 0;
-        ld_tile += gridDim.x;
-      }
-    }
-  };
-  issue(0);
-
-  int used = 0;  // stages this warpgroup has taken
-  for (long long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long row0 = tile * BM + 64 * wg;  // the warpgroup's rows
-    const int valid = (int)max(0LL, min(64LL, M - row0));
-    // the rows' offsets (the last epilogue ended on a barrier), and x's rows
-    // fetched into L2 for this one
-    long long* ro = reinterpret_cast<long long*>(smem + ROFF_OFF) + wg * 64;
-    if (tid < 64) {
-      const long long o = tid < valid ? rows_.offset(row0 + tid) : 0;
-      ro[tid] = o;
-      if (residual && tid < valid) prefetch_l2(x + o, D * 2);
-    }
-    named_barrier(1 + wg, 128);
-
-    float acc0[72], acc1[72];  // output columns 0-143 and 144-287
-#pragma unroll
-    for (int e = 0; e < 72; ++e) acc0[e] = acc1[e] = 0.f;
-    for (int kb = 0; kb < KB; ++kb, ++used) {
-      const int s = used % STAGES;
-      mbar_wait(full + 8 * s, (used / STAGES) & 1);
-      const uint32_t a = base + s * STAGE + wg * A_TILE, w = base + s * STAGE + 2 * A_TILE;
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        Wgmma<144>::ss(acc0, desc_sw128(a + ks * 32), desc_sw128(w + ks * 32), 1);
-        Wgmma<144>::ss(acc1, desc_sw128(a + ks * 32), desc_sw128(w + W_HALF + ks * 32), 1);
-      }
-      wgmma_commit();
-      wgmma_wait<1>();  // the last K block's products are done: release its stage
-      if (kb > 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty + 8 * ((used - 1) % STAGES));
-        issue(used);
-      }
-    }
-    wgmma_wait<0>();
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * ((used - 1) % STAGES));
-    issue(used);  // the next tile's first K blocks load during the epilogue
-
-    epilogue_rows_288(
-        st, acc0, acc1, bo, residual, [=](int r) { return x + ro[r]; },
-        [=](int r) { return out + ro[r]; }, valid, 1 + wg);
-  }
-}
-
-cudaError_t launch(const bf16* att, const bf16* wo, const float* bo, const bf16* x, bf16* out,
-                   Rows rows_, long long M, int residual, cudaStream_t st) {
-  // att (M, 512); wo (288, 512) [out][k]: 64 of K x 144 rows a box
-  CUtensorMap att_map, wo_map;
-  const cuuint64_t adims[2] = {HD, (cuuint64_t)M}, astrides[1] = {HD * 2};
-  const cuuint32_t abox[2] = {64, 64};
-  cudaError_t err = encode_bf16_sw128(&att_map, att, 2, adims, astrides, abox);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t wdims[2] = {HD, D}, wstrides[1] = {HD * 2};
-  const cuuint32_t wbox[2] = {64, D / 2};
-  if ((err = encode_bf16_sw128(&wo_map, wo, 2, wdims, wstrides, wbox)) != cudaSuccess) return err;
-  if ((err = set_smem(out_wgmma_kernel, SMEM)) != cudaSuccess) return err;
-  const long long tiles = (M + BM - 1) / BM;
-  const unsigned grid = (unsigned)(tiles < sm_count() ? tiles : sm_count());
-  out_wgmma_kernel<<<grid, NTHREADS, SMEM, st>>>(att_map, wo_map, bo, x, out, rows_, M,
-                                                   residual, tiles);
-  return cudaGetLastError();
-}
-
-}  // namespace out_wg
 
 cudaError_t launch_bf16(const bf16* x, const float* gamma, const float* beta, float ln_eps,
                         const bf16* wq, const bf16* wk, const bf16* wv, const bf16* wo,
@@ -823,11 +499,12 @@ cudaError_t launch_bf16(const bf16* x, const float* gamma, const float* beta, fl
                         cudaStream_t st) {
   const long long M = P * rows_.L;
   if (M > 0x7fffffffLL) return cudaErrorInvalidValue;  // TMA coordinates are int32
-  cudaError_t err = proj_wg::launch(x, rows_, gamma, beta, ln_eps, wq, wk, wv, scale, qkv, M, st);
+  cudaError_t err = performer_wg::proj::launch_qkv(x, rows_, gamma, beta, ln_eps, wq, wk, wv,
+                                                   scale, qkv, M, st);
   if (err != cudaSuccess) return err;
   if ((err = favor_wg::launch(qkv, proj, kernel_eps, attn, P, rows_.L, st)) != cudaSuccess)
     return err;
-  return out_wg::launch(attn, wo, bo, x, out, rows_, M, gamma != nullptr, st);
+  return performer_wg::out::launch<HD / 64>(attn, wo, bo, x, out, rows_, M, gamma != nullptr, st);
 }
 
 template <typename T>

@@ -10,7 +10,7 @@
 //    and ptxas then serialises its wgmmas);
 //  * wgmma: the shared-memory descriptors of a K-major and an MN-major
 //    operand in the 128-byte swizzle, fence / commit / wait, `Wgmma<N>`
-//    (m64nNk16 bf16, N = 64, 128, 144, 256): A in shared memory (ss, K-major
+//    (m64nNk16 bf16, N = 32, 64, 128, 144, 256): A in shared memory (ss, K-major
 //    or MN-major) or in registers (rs), B in shared memory K-major or
 //    MN-major; and `WgmmaTf32<N>` (m64nNk8 tf32, N = 32, 64; K-major only)
 //    with the split of a float32 into two TF32 parts for 3-pass products;
@@ -214,6 +214,27 @@ template <int N>
 struct Wgmma;
 
 template <>
+struct Wgmma<32> {
+  // d (64 x 32) = (scale_d ? d : 0) + A . B; A in shared memory: K-major
+  // (TRANS_A 0) or MN-major (TRANS_A 1); B in shared memory: K-major
+  // (TRANS_B 0) or MN-major (TRANS_B 1)
+  template <int TRANS_B = 0, int TRANS_A = 0>
+  __device__ __forceinline__ static void ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %20, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  }
+};
+
+template <>
 struct Wgmma<64> {
   // d (64 x 64) = (scale_d ? d : 0) + A . B; A in shared memory: K-major
   // (TRANS_A 0) or MN-major (TRANS_A 1); B in shared memory: K-major
@@ -386,6 +407,52 @@ struct Wgmma<144> {
 
 template <>
 struct Wgmma<256> {
+  // d (64 x 256) = (scale_d ? d : 0) + A . B; A in shared memory: K-major
+  // (TRANS_A 0) or MN-major (TRANS_A 1); B in shared memory: K-major
+  // (TRANS_B 0) or MN-major (TRANS_B 1)
+  template <int TRANS_B = 0, int TRANS_A = 0>
+  __device__ __forceinline__ static void ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                            uint32_t scale_d) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+        "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+        "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+        "%120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, %132, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+        : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
+  }
+
   // d (64 x 256) = (scale_d ? d : 0) + A . B; A (64 x 16) in registers (the
   // accumulator layout, bf16 pairs), B in shared memory: K-major (TRANS_B 0)
   // or MN-major (TRANS_B 1)
@@ -494,6 +561,24 @@ __device__ __forceinline__ void tf32_split(float x, float& big, float& small) {
   small = x - big;
 }
 
+// FAVOR+ feature map of a 64 x 16 KS accumulator (kernels C and C'):
+// relu(d) + eps as bf16 pairs into the A fragments of its KS K steps; columns
+// at or past `valid` are zero. sum[h] gains the rounded values of row half h.
+template <int KS = 4>
+__device__ __forceinline__ void favor_features(uint32_t (&a)[KS][4], const float (&d)[8 * KS],
+                                               float eps, int valid, int t, float (&sum)[2]) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = 16 * ks + 8 * (k >> 1) + 2 * t, e = 8 * ks + 2 * k;
+      a[ks][k] = pack_bf16(col < valid ? fmaxf(d[e], 0.f) + eps : 0.f,
+                           col + 1 < valid ? fmaxf(d[e + 1], 0.f) + eps : 0.f);
+      const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]);
+      sum[k & 1] += __low2float(v) + __high2float(v);
+    }
+}
+
 // ---- rows of the pair width -------------------------------------------------
 // A warpgroup of a pair-track kernel holds 64 rows of D = 288 values: thread
 // (warp w of the warpgroup, lane 4g + t) holds rows 16w + g and 16w + g + 8.
@@ -582,12 +667,14 @@ __device__ __forceinline__ void cp_async_wait_all() {
 
 // The epilogue of a warpgroup holding 64 rows x 288 float32 sums in two
 // m64n144 accumulators (columns 0-143, 144-287): out row r = bf16(acc + bias
-// (+ x row r)), added in float32 and rounded once. Each half goes through
+// (+ x row r)), added in float32 and rounded once (a null bias adds
+// nothing). Each half goes through
 // shared memory `st` (64 rows of PAIR_LDH elements, 19,456 bytes) so that x
 // is read and out written as whole 16-byte vectors: row_x(r), row_out(r)
 // give row r's first element (x is read only with `residual`); rows >=
-// `valid` are not written. Whole warpgroup; `bar` is a named barrier of its
-// 128 threads. `st` may be written again once it returns.
+// `valid`, and rows whose row_out is null, are not written. Whole warpgroup;
+// `bar` is a named barrier of its 128 threads. `st` may be written again
+// once it returns.
 template <typename RowX, typename RowOut>
 __device__ __forceinline__ void epilogue_rows_288(__nv_bfloat16* st, const float (&acc0)[72],
                                                   const float (&acc1)[72],
@@ -608,7 +695,8 @@ __device__ __forceinline__ void epilogue_rows_288(__nv_bfloat16* st, const float
 #pragma unroll
     for (int n = 0; n < 18; ++n) {
       const int col = 8 * n + 2 * t;
-      const float2 b = __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
+      const float2 b = bias == nullptr ? make_float2(0.f, 0.f)
+                                       : __ldg(reinterpret_cast<const float2*>(bias + col0 + col));
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(st + (r0 + 8 * h) * PAIR_LDH + col);
@@ -624,8 +712,10 @@ __device__ __forceinline__ void epilogue_rows_288(__nv_bfloat16* st, const float
     named_barrier(bar, 128);
     for (int e = tid; e < valid * VPH; e += 128) {
       const int r = e / VPH, c = 8 * (e % VPH);
-      *reinterpret_cast<uint4*>(row_out(r) + col0 + c) =
-          *reinterpret_cast<const uint4*>(st + r * PAIR_LDH + c);
+      __nv_bfloat16* o = row_out(r);
+      if (o != nullptr)
+        *reinterpret_cast<uint4*>(o + col0 + c) =
+            *reinterpret_cast<const uint4*>(st + r * PAIR_LDH + c);
     }
     named_barrier(bar, 128);  // st is read before it is written again
   };

@@ -17,8 +17,9 @@ are differentiable with JAX's backward: C' for the attention (no gradient
 for `projection`, as JAX returns zeros), LN(x) recomputed and its cotangent
 routed through autograd in the LN forms (`_bwd_rule_lnres`). `launches`
 counts calls of C (three CUDA launches each: projection, FAVOR+, output),
-`bwd_launches` calls of C' (five: projections, FAVOR+, dx, weight-gradient
-partials, their sum).
+`bwd_launches` calls of C' (five steps: projections, FAVOR+, dx,
+weight-gradient partials, their sum; six CUDA launches in bf16, whose q/k/v
+and go projections are two).
 """
 
 from __future__ import annotations
@@ -212,6 +213,15 @@ def _as_rows(t, axis):
     return t.reshape(-1, *t.shape[-2:])
 
 
+def wgrad_splits(P, L, dtype=torch.bfloat16):
+    """Split-K partials of C''s weight gradients: bf16 splits the 64-position
+    row chunks of P problems into at most 8 ranges (16 output tiles x 8 fill
+    the card); float32 the rows into ranges of 2048."""
+    if dtype == torch.bfloat16:
+        return min(8, P * -(-L // 64))
+    return max(1, min(32, -(-(P * L) // 2048)))
+
+
 def _launch_bwd(y, gy, wq, wk, wv, wo, projection, scale, kernel_eps, heads, dim_head, axis):
     global bwd_launches
     D = y.shape[-1]
@@ -233,7 +243,7 @@ def _launch_bwd(y, gy, wq, wk, wv, wo, projection, scale, kernel_eps, heads, dim
     hd = heads * dim_head
     lib.fused_performer_bwd_wgrad_elems.restype = ctypes.c_int
     n_w = lib.fused_performer_bwd_wgrad_elems()
-    splits = max(1, min(32, -(-M // 2048)))
+    splits = wgrad_splits(P, L, cdt)
     w_lin = [w.t().contiguous() for w in (wq, wk, wv)]  # nn.Linear layout
     w3 = torch.cat([wq, wk, wv], 1).contiguous()
     wo_c, proj = wo.contiguous(), projection.to(cdt).contiguous()
@@ -241,17 +251,23 @@ def _launch_bwd(y, gy, wq, wk, wv, wo, projection, scale, kernel_eps, heads, dim
     g3 = torch.empty((M, 3 * hd), dtype=cdt, device=dev)
     att = torch.empty((M, hd), dtype=cdt, device=dev)
     go = torch.empty((M, hd), dtype=torch.float32, device=dev)
+    gn = gden = None  # bf16: gnum_ext between the FAVOR+ launch's phases
+    if cdt == torch.bfloat16:
+        gn = torch.empty((M, hd), dtype=cdt, device=dev)
+        gden = torch.empty((M, heads), dtype=torch.float32, device=dev)
     part = torch.empty((splits, n_w), dtype=torch.float32, device=dev)
     wgrad = torch.empty(n_w, dtype=torch.float32, device=dev)
     dy = torch.empty_like(y)
     fn = lib.fused_performer_bwd
     fn.restype = ctypes.c_int
     c_p, c_f, c_i, c_ll = ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_longlong
-    fn.argtypes = ([c_p] * 8 + [c_f, c_f] + [c_p] * 6 + [c_i, c_p, c_ll, c_i, c_ll, c_ll, c_ll]
+    fn.argtypes = ([c_p] * 8 + [c_f, c_f] + [c_p] * 8 + [c_i, c_p, c_ll, c_i, c_ll, c_ll, c_ll]
                    + [c_i] * 6 + [c_p])
     rc = fn(build.ptr(y), build.ptr(gy), *(build.ptr(w) for w in w_lin), build.ptr(wo_c),
             build.ptr(w3), build.ptr(proj), float(scale), float(kernel_eps), build.ptr(qkv),
-            build.ptr(go), build.ptr(att), build.ptr(g3), build.ptr(dy), build.ptr(part),
+            build.ptr(go), build.ptr(att), build.ptr(g3),
+            None if gn is None else build.ptr(gn), None if gden is None else build.ptr(gden),
+            build.ptr(dy), build.ptr(part),
             splits, build.ptr(wgrad), P, L, L1 * L2 * D, s_lo, s_pos, p_inner, D, heads,
             dim_head, m, _DTYPES[cdt], build.stream_of(y))
     build.check(lib, rc, "fused_performer_bwd")

@@ -23,6 +23,17 @@ launches = 0  # kernel launches made by this process
 BWD_CHUNK = 128  # i-rows recomputed per step of the backward (JAX `_BWD_CHUNK`)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_orders: dict = {}  # device -> chunk_order() there
+
+
+def chunk_order(device, u=32):
+    """W's rows in the bf16 kernel's K order: its 16 chunks of 8 u x 8 v
+    (chunk c = 4 (u // 8) + v // 8), each row-major in (u % 8, v % 8)."""
+    if device not in _orders:
+        c, ul, vl = torch.meshgrid(torch.arange(16), torch.arange(8), torch.arange(8),
+                                   indexing="ij")
+        _orders[device] = (u * (8 * (c // 4) + ul) + 8 * (c % 4) + vl).reshape(-1).to(device)
+    return _orders[device]
 
 
 def outer_product_plain(x, y, gamma, beta, w, b, eps, out_dtype):
@@ -57,8 +68,8 @@ def _launch(x, y, gamma, beta, w, b, eps, out_dtype):
     global launches
     if out_dtype != y.dtype:
         raise TypeError(f"outer-product kernel writes y's dtype: {out_dtype} != {y.dtype}")
-    if not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError("outer-product kernel needs contiguous x, y")
+    if not (x.is_contiguous() and y.is_contiguous()) or (x.data_ptr() | y.data_ptr()) % 16:
+        raise ValueError("outer-product kernel needs contiguous, 16-byte aligned x, y")
     B, N, L, u = x.shape
     Dp = w.shape[1]
     if u != 32 or Dp != 288:
@@ -67,7 +78,10 @@ def _launch(x, y, gamma, beta, w, b, eps, out_dtype):
     if out.numel() == 0:
         return out
     lib = build.load("outer_product")
-    wt = w.t().contiguous()  # (Dp, u*u): nn.Linear layout
+    wt = w.t()  # (Dp, u*u): nn.Linear layout; bf16 with K in the kernel's chunk order
+    if y.dtype == torch.bfloat16:
+        wt = wt.index_select(1, chunk_order(w.device, u))
+    wt = wt.contiguous()
     g, be, bb = (t.contiguous() for t in (gamma, beta, b))
     fn = lib.outer_product_fwd
     fn.restype = ctypes.c_int

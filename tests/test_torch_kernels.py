@@ -640,14 +640,21 @@ def test_conv_kernel_matches_plain_on_card(cuda, dtype, B, H, W, dilation, with_
     _close(out, ref, 2e-5)
 
 
+# (B, N, L): the bf16 kernel's tiles are 8 rows i x 16 columns j, its K
+# steps 16 MSA rows, at most 64 of them resident (N = 100 stages them 64 at a
+# time); L = 1, 63, 65, 129, 200 cut tiles at a row's end, N = 1, 19 pad a K
+# step, B = 3 crosses the batch within the grid's walk
+OPM_CARD_CASES = [(B, N, L) for B in (1, 3) for N in (1, 8, 19, 64) for L in (1, 63, 65, 129, 200)]
+OPM_CARD_CASES += [(2, 8, 37), (2, 19, 37), (1, 100, 65)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("N", [8, 19])
-def test_opm_kernel_matches_plain_on_card(cuda, dtype, N):
-    rng = np.random.default_rng(N)
-    L = 37
-    x = rng.normal(size=(2, N, L, 32)).astype(np.float32)
-    y = rng.normal(size=(2, N, L, 32)).astype(np.float32)
+@pytest.mark.parametrize("B,N,L", OPM_CARD_CASES)
+def test_opm_kernel_matches_plain_on_card(cuda, dtype, B, N, L):
+    rng = np.random.default_rng(N * 1000 + L)
+    x = rng.normal(size=(B, N, L, 32)).astype(np.float32)
+    y = rng.normal(size=(B, N, L, 32)).astype(np.float32)
     g, b = _affine(rng, 1024)
     w = (rng.normal(size=(1024, 288)) / 32).astype(np.float32)
     bias = (0.1 * rng.normal(size=288)).astype(np.float32)
@@ -971,11 +978,19 @@ def _close_grad(out, ref, atol, rtol, dtype):
                                    rtol=BF16_RTOL)
 
 
+# (B, L1, L2): problems and positions off the bf16 FAVOR+ backward's 64-position
+# chunks (L = 5, 37, 64, 77, 129, 130), a block's item walk, and the weight
+# gradients' 64-position row chunks
+PERFORMER_BWD_CASES = [(1, 9, 5), (2, 70, 37), (1, 129, 64), (3, 77, 130)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("axis1,lnres", [(True, False), (False, True)])
-def test_performer_backward_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres):
-    x, ln, w, statics = _performer_args((2, 70, 37), D=288, h=8, dh=64, m=320)
+@pytest.mark.parametrize("axis1,lnres", [(True, False), (False, True), (True, True),
+                                         (False, False)])
+@pytest.mark.parametrize("shape", PERFORMER_BWD_CASES)
+def test_performer_backward_kernel_matches_plain_on_card(cuda, dtype, axis1, lnres, shape):
+    x, ln, w, statics = _performer_args(shape, D=288, h=8, dh=64, m=320)
     w = tuple(a / 2 for a in w[:4]) + w[4:]
     tx = _card(x, cuda, dtype)
     gy = torch.randn(tx.shape, generator=torch.Generator().manual_seed(1)).to(cuda, dtype) * 0.1
@@ -993,6 +1008,26 @@ def test_performer_backward_kernel_matches_plain_on_card(cuda, dtype, axis1, lnr
     for a, b in zip(got, want):
         if b is not None:
             _close_grad(a, b, 2e-4, 1e-3, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("axis1", [True, False])
+def test_performer_backward_weight_grads_repeat_on_card(cuda, axis1):
+    """bf16 C' gives equal bits for the weight gradients on two calls: split-K
+    partials summed in a fixed order, slices summed in a fixed order."""
+    x, ln, w, statics = _performer_args((4, 128, 128), D=288, h=8, dh=64, m=320)
+    tx = _card(x, cuda, torch.bfloat16)
+    gy = (torch.randn(tx.shape, generator=torch.Generator().manual_seed(2)) * 0.05).to(
+        cuda, torch.bfloat16)
+    tw = [_card(a / 2, cuda, torch.bfloat16) for a in w[:4]]
+    proj = _card(w[5], cuda)
+    xin, gin = (tx, gy) if axis1 else (tx.reshape(-1, *tx.shape[2:]), gy.reshape(-1, *gy.shape[2:]))
+    axis = 1 if axis1 else 2
+    first = tfp.performer_backward(xin, None, *tw, proj, *statics, axis, gin)
+    second = tfp.performer_backward(xin, None, *tw, proj, *statics, axis, gin)
+    torch.cuda.synchronize()
+    for a, b in zip(first[3:], second[3:]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
