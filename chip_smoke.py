@@ -26,7 +26,10 @@ Phases (any failure exits non-zero and prints no result line):
      the float32 one at res_1's dense and gather shapes and at L=1100 (the
      float32 line is the one `bound` records); generalized FAVOR+ linear attention (H),
      float32 and bfloat16, at (P, L) = (8 * 512, 512), bench_kernels.py's
-     shape at L=512, and at a ragged (7, 77);
+     shape at L=512, and at a ragged (7, 77), in bf16 with the share of
+     outputs bit-equal to the plain version's (>= 0.99: JAX's float32
+     feature maps and ctx) and, at the main shape, the device time beside
+     the bound of the work its high/low split issues (`split_bound_ms`);
      the pair-track kernels at L=128 (B=4) and L=250 (B=1): fused LN + FAVOR+
      + residual (C) over both axes, with and without LN/residual; fused LN +
      FF + residual (D); outer-product mean (E) at each N of PATH_NS; 3x3 conv (F)
@@ -84,7 +87,7 @@ Phases (any failure exits non-zero and prints no result line):
      path's neighborhoods;
   6. profile: torch.profiler over one warm B=4, N=8, L=128 forward: device
      busy share and the top device-time operators; every profile (4b, 6, 7)
-     also logs the device kernels of A-G (PROFILED): calls and ms a call;
+     also logs the device kernels of A-H (PROFILED): calls and ms a call;
   7. training: train.loop.fit with bench_train.py's configuration (bf16,
      kernels, dense SE(3), remat, dropout 0.1, bf16 first moments) on a
      synthetic (A3M, PDB) pair, at B=1 / n_seq 8 / crop 128 and B=4 / n_seq
@@ -125,6 +128,10 @@ LONG_REQUESTS = ((512, 64, 10), (1100, 32, 3))  # (crop, n_seq, warm forwards ti
 LONG_PATH = tuple((c, n) for c, n, _ in LONG_REQUESTS)
 H_SHAPE = (8 * 512, 512)  # bench_kernels.py's FAVOR+ shape at L=512: P = L * 8 heads
 H_PATH_CALLS = 3
+# least share of H's bf16 outputs equal to the plain version's: JAX's rounding
+# points (float32 feature maps, ctx, normalizer) give about 0.999 at the main
+# shape, feature maps and ctx rounded to bf16 about 0.81 (probes/la_variants.py)
+H_BIT_EQUAL = 0.99
 
 
 class Kernel(NamedTuple):
@@ -186,8 +193,9 @@ BF16_ATOL, BF16_RTOL = 1e-2, 2.0 ** -6
 # bf16, float32), E (csrc/outer_product.cu: bf16, float32), F
 # (csrc/conv3x3.cu: the bf16 conv, its pre-op launch, the float32 conv) and G
 # (csrc/tied_attention_bwd.cu: dsum, the bf16 p / ds and gradient launches,
-# the float32 ones); each profile logs their calls and time (a name matches
-# the kernels whose name holds it)
+# the float32 ones) and H (csrc/linear_attention.cu: bf16, float32); each
+# profile logs their calls and time (a name matches the kernels whose name
+# holds it)
 PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "tied_fwd_f32"),
             "B": ("se3_attend_kernel",),
             "C": ("proj_wgmma_kernel<24, false>", "performer_proj_kernel", "favor_wgmma_kernel",
@@ -199,7 +207,8 @@ PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "
             "E": ("opm_wgmma_kernel", "opm_f32_kernel"),
             "F": ("conv3x3_tma_kernel", "pre_op_kernel", "conv3x3_kernel"),
             "G": ("tied_bwd_dsum_kernel", "tied_bwd_sdp_kernel", "tied_bwd_grad_kernel",
-                  "dkv_f32_kernel", "dq_f32_kernel")}
+                  "dkv_f32_kernel", "dq_f32_kernel"),
+            "H": ("la_wgmma_kernel", "la_f32_kernel")}
 # ms a call the wrappers' host side takes is timed over this many calls
 HOST_CALLS = 50
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
@@ -561,7 +570,10 @@ def _se3_device(res, name, tag, sa, args, share, shape=None):
 
 def phase_linear_attention(res):
     """H at bench_kernels.py's shape at L=512 (q, k at 0.1 std, the seed-0
-    projection cast to the dtype) and at a ragged (7, 77)."""
+    projection cast to the dtype) and at a ragged (7, 77). bf16: the share of
+    outputs equal to the plain version's (the float32 result rounded once)
+    must reach H_BIT_EQUAL; at the main shape also the bf16 kernel's device
+    time and the bound of the work its bf16 high/low split issues."""
     import torch
 
     from rosettafold_tpu_torch.ops import performer as favor
@@ -569,6 +581,7 @@ def phase_linear_attention(res):
 
     g = torch.Generator(device="cuda").manual_seed(5)
     proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 0)).float().cuda()
+    rec = res.kernels["linear_attention"]
     for P, L in (H_SHAPE, (7, 77)):
         q, k = (_normal((P, L, 64), 0.1, g) for _ in range(2))
         v = _normal((P, L, 64), 1.0, g)
@@ -578,6 +591,27 @@ def phase_linear_attention(res):
             res.case("linear_attention", f"P={P} L={L}", la.generalized_linear_attention,
                      la.linear_attention_plain, args, dname, main=main,
                      iters=10 if main else 3)
+            if dname == "float32":
+                continue
+            share = float((la.generalized_linear_attention(*args)
+                           == la.linear_attention_plain(*args)).float().mean())
+            log(f"linear_attention P={P} L={L} bfloat16: {share:.6f} of the outputs equal the"
+                f" plain version's (>= {H_BIT_EQUAL})")
+            require(share >= H_BIT_EQUAL, f"H's bf16 outputs at P={P} L={L} leave the float32"
+                                          f" rounding points: {share:.6f} bit-equal")
+            rec.setdefault("bit_equal_share", {})[f"P={P} L={L}"] = share
+            if main:
+                m = proj.shape[0]
+                dev = _device_ms(lambda: la.generalized_linear_attention(*args),
+                                 "la_wgmma_kernel", calls=10)
+                # 2 feature maps, ctx from hi and lo, num from hi.hi, hi.lo, lo.hi
+                flops = 2.0 * P * L * m * 64 * (2 + 2 + 3)
+                nbytes = 4 * P * L * 64 * 2 + m * 64 * 2
+                split_ms = max(flops / PEAK_FLOPS["bfloat16"], nbytes / HBM_BYTES_S) * 1e3
+                log(f"linear_attention P={P} L={L} bfloat16: device time a call {dev:.4f} ms;"
+                    f" bound of the split's work ({flops:.3e} FLOP) {split_ms:.4f} ms, of the"
+                    f" function's {rec['bound_ms']:.4f} ms")
+                rec.update(device_ms=dev, split_bound_ms=split_ms)
         del q, k, v
 
 

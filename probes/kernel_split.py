@@ -1,5 +1,6 @@
-"""Device time of each CUDA kernel that one wrapper call of kernel E or kernel
-C' launches, on the card, by torch.profiler: a call's per-launch split.
+"""Device time of each CUDA kernel that one wrapper call of kernel E, kernel
+C' or kernel H launches, on the card, by torch.profiler: a call's per-launch
+split.
 
     python3 probes/kernel_split.py [CHECKOUT]
 
@@ -7,7 +8,8 @@ CHECKOUT (default: this script's checkout) is the root of the tree whose port
 is measured, so one command can time two trees in turns (parent, change,
 change, parent). Prints one line per kernel name and shape: ms a call (the
 mean over 5 calls after one warm call), for E at (B, N, L) = (4, 8, 128) and
-(1, 32, 1100) and C' at B=4, L=128 (the row step without LN), all bfloat16.
+(1, 32, 1100), C' at B=4, L=128 (the row step without LN) and H at (P, L) =
+(4096, 512) (chip_smoke.py's main shape: q, k at 0.1 std), all bfloat16.
 It takes the kernels' names from the profile, so it runs on any tree of the
 port, whatever its kernels are called.
 """
@@ -28,6 +30,7 @@ def main() -> int:
 
     from rosettafold_tpu_torch.ops import performer as favor
     from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+    from rosettafold_tpu_torch.ops.cuda import linear_attention as la
     from rosettafold_tpu_torch.ops.cuda import outer_product as op
 
     if not torch.cuda.is_available():
@@ -71,6 +74,13 @@ def main() -> int:
     proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
     split("C' B=4 L=128 axis 1 no LN",
           lambda: fp.performer_backward(x, None, *w, proj, 64 ** -0.25, 1e-3, 8, 64, 1, gy))
+    del x, gy, w
+    P, L = 4096, 512
+    q, k = ((torch.randn(P, L, 64, generator=g, device="cuda") * 0.1).to(bf) for _ in range(2))
+    v = torch.randn(P, L, 64, generator=g, device="cuda").to(bf)
+    hp = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 0)).cuda().to(bf)
+    with torch.inference_mode():
+        split(f"H P={P} L={L}", lambda: la.generalized_linear_attention(q, k, v, hp))
     return 0
 
 

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks for kernels that stage operands by TMA
 // or cp.async and multiply them with wgmma (kernels F, A, B, C's three
-// launches, D and G):
+// launches, C', D, E, G and H's bf16 path):
 //  * shared-memory addresses, mbarriers (init, arrive, expect_tx, a bounded
 //    parity wait) and named barriers;
 //  * TMA tiled loads (2-D, 3-D and 4-D) that complete on an mbarrier, and a
@@ -18,6 +18,8 @@
 //    straight into wgmma A fragments, the epilogue of a 64 x 288
 //    accumulator (bias, residual, 16-byte row stores through shared memory),
 //    and a bulk prefetch of rows into L2;
+//  * the FAVOR+ feature map into A fragments: rounded to bf16 (kernels C and
+//    C'), or split into bf16 high and low parts (kernel H);
 //  * cp.async copies of 4 and 16 bytes that zero-fill where a predicate
 //    is false;
 //  * the card's SM count;
@@ -576,6 +578,30 @@ __device__ __forceinline__ void favor_features(uint32_t (&a)[KS][4], const float
                            col + 1 < valid ? fmaxf(d[e + 1], 0.f) + eps : 0.f);
       const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&a[ks][k]);
       sum[k & 1] += __low2float(v) + __high2float(v);
+    }
+}
+
+// The same feature map held to float32 accuracy (kernel H): x = relu(d) +
+// eps in float32 (zero at columns at or past `valid`) as two bf16 A fragments
+// per K step, hi = bf16(x) and lo = bf16(x - hi), so that hi . B + lo . B
+// carries x to about 2^-17 of itself. sum[h] gains x * weight(column) of row
+// half h, from the unrounded x.
+template <int KS, typename Weight>
+__device__ __forceinline__ void favor_features_split(uint32_t (&hi)[KS][4], uint32_t (&lo)[KS][4],
+                                                     const float (&d)[8 * KS], float eps,
+                                                     int valid, int t, float (&sum)[2],
+                                                     Weight&& weight) {
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int col = 16 * ks + 8 * (k >> 1) + 2 * t, e = 8 * ks + 2 * k;
+      const float x0 = col < valid ? fmaxf(d[e], 0.f) + eps : 0.f;
+      const float x1 = col + 1 < valid ? fmaxf(d[e + 1], 0.f) + eps : 0.f;
+      hi[ks][k] = pack_bf16(x0, x1);
+      const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&hi[ks][k]);
+      lo[ks][k] = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+      sum[k & 1] += x0 * weight(col) + x1 * weight(col + 1);
     }
 }
 

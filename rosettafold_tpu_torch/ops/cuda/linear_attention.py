@@ -8,8 +8,10 @@ phi(x) = relu(x P^T) + eps, ctx = phi(k)^T v, and out = phi(q) ctx /
 max(phi(q) sum_L phi(k), 1e-12), returned in q's dtype. The feature maps,
 ctx and the normalizer stay in float32 for bfloat16 inputs, as in the TPU
 kernel (`_forward`, :41-68), not in the reference's dtypes (`_xla_reference`
-adds 1e-12 instead). The model's attention runs kernel C; H is the
-stand-alone function. The backward is JAX's (`_bwd`): the vjp of the plain
+adds 1e-12 instead). On the card, bfloat16 runs on wgmma and carries those
+float32 values through a bf16 high/low split, so that only the output is
+rounded; float32 runs on the CUDA cores. The model's attention runs kernel
+C; H is the stand-alone function. The backward is JAX's (`_bwd`): the vjp of the plain
 version, recomputed, with no gradient for the fixed projection.
 """
 

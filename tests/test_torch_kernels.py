@@ -369,11 +369,11 @@ def test_se3_gather_kernel_ignores_masked_indices_on_card(cuda, name, L, S, k):
     _se3_check_on_card(args)
 
 
-def _h_inputs(P, L, dh, m, seed=0):
-    """Kernel H's operands: q, k at dh^-0.25 of unit variance, v unit, the
+def _h_inputs(P, L, dh, m, seed=0, std=None):
+    """Kernel H's operands: q, k of std `std` (default dh^-0.25), v unit, the
     seed-0 FAVOR+ projection (m, dh)."""
     rng = np.random.default_rng(seed)
-    s = dh ** -0.25
+    s = dh ** -0.25 if std is None else std
     q, k = ((rng.normal(size=(P, L, dh)) * s).astype(np.float32) for _ in range(2))
     v = rng.normal(size=(P, L, dh)).astype(np.float32)
     return q, k, v, gaussian_orthogonal_matrix(m, dh, seed=0).astype(np.float32)
@@ -411,11 +411,25 @@ def test_se3_gather_kernel_matches_plain_on_card(cuda, name, L, S):
         torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
 
 
+# (P, L, m, q/k std or None for dh^-0.25): the bench shape at L=512, a ragged
+# one, L around the bf16 kernel's 64-position chunks, P around its persistent
+# grid, every feature-slice count up to the largest, and q, k at std 1.0
+H_CARD_CASES = ([(64, 512, 320, None), (7, 77, 320, None)]
+                + [(3, L, 320, None) for L in (1, 63, 64, 65, 200, 513)]
+                + [(P, 130, 320, None) for P in (1, 3, 300)]
+                + [(5, 200, m, None) for m in (64, 192, 320)]
+                + [(16, 256, 320, 1.0)])
+
+
+def _h_card(cuda, dtype, P, L, m=320, std=None, seed=0):
+    return tuple(torch.from_numpy(x).to(cuda, dtype) for x in _h_inputs(P, L, 64, m, seed, std))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("P,L", [(64, 512), (7, 77)])
-def test_linear_attention_kernel_matches_plain_on_card(cuda, dtype, P, L):
-    q, k, v, proj = (torch.from_numpy(x).to(cuda, dtype) for x in _h_inputs(P, L, 64, 320))
+@pytest.mark.parametrize("P,L,m,std", H_CARD_CASES)
+def test_linear_attention_kernel_matches_plain_on_card(cuda, dtype, P, L, m, std):
+    q, k, v, proj = _h_card(cuda, dtype, P, L, m, std)
     before = tla.launches
     out = tla.generalized_linear_attention(q, k, v, proj)
     ref = tla.linear_attention_plain(q, k, v, proj)
@@ -424,6 +438,36 @@ def test_linear_attention_kernel_matches_plain_on_card(cuda, dtype, P, L):
     # float32: the JAX kernel test's 3e-5; bf16: two bf16 ulps (2^-6) + 1e-2
     atol, rtol = (3e-5, 3e-5) if dtype == torch.float32 else (1e-2, 2.0 ** -6)
     torch.testing.assert_close(out.float(), ref.float(), atol=atol, rtol=rtol)
+    if dtype == torch.bfloat16 and (P, L) == (64, 512):
+        # the feature maps, ctx and ksum held to float32 as JAX's kernel holds
+        # them: at least 99 % of the outputs equal the float32 plain version
+        # rounded once (bf16-rounded feature maps and ctx give about 81 %)
+        assert float((out == ref).float().mean()) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_kernel_keeps_problems_apart_on_card(cuda, dtype):
+    """Problem 0 (L = 33, less than one 64-position chunk) gives the same bits
+    beside a problem of large k and v as alone: no position of one problem
+    reaches another's ctx or normalizer."""
+    q, k, v, proj = _h_card(cuda, dtype, 2, 33)
+    k[1] = k[1] * 4 + 1
+    v[1] = v[1] * 1000
+    both = tla.generalized_linear_attention(q, k, v, proj)
+    alone = tla.generalized_linear_attention(q[:1], k[:1], v[:1], proj)
+    torch.cuda.synchronize()
+    assert torch.equal(both[:1], alone)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_attention_kernel_is_deterministic_on_card(cuda, dtype):
+    q, k, v, proj = _h_card(cuda, dtype, 300, 200)
+    a = tla.generalized_linear_attention(q, k, v, proj)
+    b = tla.generalized_linear_attention(q, k, v, proj)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 # ------------------------------------------------------- pair-track kernels
