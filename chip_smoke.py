@@ -78,6 +78,27 @@ Phases (any failure exits non-zero and prints no result line):
      21/12/56/28/7/46 times, dense B and H never; each request's bucket
      overflow; a profile of one L=1100 forward; then H's own path, its
      wrapper called as a caller would at the bench shape;
+  4c. the other serving options, at flagship width with one set of seed-0
+     weights: the exact scatter SE(3) layout at crop 512 / n_seq 64 of the
+     synthetic A3M through `predict()` (bf16, kernels), timed over 3 warm
+     forwards beside the bucket layout's, launching what the bucket request
+     launches but kernel B (0: the scatter layout runs plain segment ops, as
+     in JAX), with max|d| of its logits and xyz against the bucket's and the
+     bucket's overflow; the float32 plain scatter path against the float32
+     plain dense one at crop 128 of the demo A3M, held to the full-depth
+     envelope, the first three-track block's edge sets identical; a
+     template (1, L, L, 64) from a seeded generator at L=250 / n_seq 32: the
+     bf16 kernel path launching what the L=250 request launches, the float32
+     kernel path against the float32 plain path held to the envelope, and
+     the bf16 path's gap to the float32 plain one logged beside the same gap
+     without the template (the bf16 trunk alone is outside the envelope at
+     full depth); long_chunk=128 on the exact preset (float32, plain) at crop
+     512 against the unchunked run: the two-track stack's (msa, pair) and
+     the first three-track block's input CA within 1e-4 and its edge sets
+     equal, the whole model on the unchunked run's neighborhoods within the
+     envelope (the unpinned gap logged), the peak memory of each (the
+     chunked run must hold less); and long_chunk on `fast_config(512)`
+     launching what the unchunked request launches;
   5. end to end: requests with the same weights through attn_impl="pallas"
      and "xla" at float32 (crop 96 and crop 128 of the demo A3M, crop 400 of
      the synthetic one: bucketed SE(3)), held to the full-depth envelope
@@ -126,6 +147,11 @@ LONG_A3M = (1100, 80, 1)  # (L, rows, seed) of the synthetic long-chain A3M
 LONG_REQUESTS = ((512, 64, 10), (1100, 32, 3))  # (crop, n_seq, warm forwards timed)
 # (L, n_seq) of each long request: phase 3 holds the kernels at these shapes
 LONG_PATH = tuple((c, n) for c, n, _ in LONG_REQUESTS)
+# phase 4c: the scatter SE(3) layout and long_chunk at crop 512 of the long A3M,
+# the scatter-vs-dense envelope at crop 128 and the template at L=250 (demo A3M)
+CFG_CROP, CFG_N_SEQ, CFG_REPS = 512, 64, 3  # crop, n_seq, warm forwards timed
+CFG_DENSE_CROP, CFG_TEMPLATE = 128, (250, 32)  # (crop, n_seq)
+CFG_LONG_CHUNK, CFG_CHUNK_TOL = 128, 1e-4
 H_SHAPE = (8 * 512, 512)  # bench_kernels.py's FAVOR+ shape at L=512: P = L * 8 heads
 H_PATH_CALLS = 3
 # least share of H's bf16 outputs equal to the plain version's: JAX's rounding
@@ -1234,6 +1260,226 @@ def phase_long_serving(a3m):
     return {n: long_counts[n] + h_counts[n] for n in KERNELS}
 
 
+def _same_weights(model, cfg):
+    """RoseTTAFold(cfg) on the card with `model`'s weights (no random init).
+    With a template where `model` has none, proj takes seeded template
+    columns at the init's scale and ln_template the identity."""
+    import torch
+
+    from rosettafold_tpu_torch.models.rosettafold import RoseTTAFold
+
+    with torch.device("cuda"):
+        twin = RoseTTAFold(cfg, device="cuda", init=False)
+    sd = model.state_dict()
+    if cfg.use_template and not model.config.use_template:
+        w = sd["pair_emb.proj.weight"]
+        g = torch.Generator(device="cuda").manual_seed(7)
+        cols = _normal((w.shape[0], cfg.d_template), 1.0 / math.sqrt(w.shape[1] + cfg.d_template),
+                       g)
+        sd = {**sd, "pair_emb.proj.weight": torch.cat([w, cols], 1),
+              "pair_emb.ln_template.weight": torch.ones(cfg.d_template, device="cuda"),
+              "pair_emb.ln_template.bias": torch.zeros(cfg.d_template, device="cuda")}
+    twin.load_state_dict(sd, strict=True)
+    return twin.eval()
+
+
+def _max_gap(a, b):
+    """(logits max|d|, xyz max|d|) between two (logits, xyz) outputs."""
+    return (max(float((a[0][k] - b[0][k]).abs().max()) for k in a[0]),
+            float((a[1] - b[1]).abs().max()))
+
+
+def phase_configs(long_a3m):
+    """4c: the scatter SE(3) layout, the template input and long_chunk at
+    flagship width (see the module docstring). Returns the kernel launches
+    of its kernel-path runs."""
+    import dataclasses
+
+    import torch
+
+    from rosettafold_tpu_torch import predict as P
+    from rosettafold_tpu_torch.config import RoseTTAFoldConfig
+    from rosettafold_tpu_torch.data.a3m import load_a3m, msa_features
+
+    t0 = time.perf_counter()
+    total = dict.fromkeys(KERNELS, 0)
+
+    def counted(what, want_per_fwd, n, fn):
+        """fn() with the counts at 0 before and read after; each kernel must
+        have launched want_per_fwd[name] * n times."""
+        zero_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {name: want_per_fwd[name] * n for name in KERNELS}
+        require(counts == want, f"launches {counts} != {want} after {what}")
+        for name in KERNELS:
+            total[name] += counts[name]
+        return out
+
+    long_fwd = {n: k.per_long_fwd for n, k in KERNELS.items()}
+    scatter_fwd = {**long_fwd, "se3_attend_gather": 0}
+    base = P.build_model(P.fast_config(CFG_CROP), device="cuda", seed=0)
+
+    def request(model, want, tag):
+        def run():
+            logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
+                long_a3m, n_seq=CFG_N_SEQ, crop=CFG_CROP, benchmark=True, device="cuda",
+                model=model)
+            _check_outputs(logits, xyz, plddt, 1, msa.shape[-1])
+            args = [torch.as_tensor(a, device="cuda") for a in (msa, seq, aa)]
+            _, times = _timed_forwards(model, args, CFG_REPS)
+            return (logits, xyz), fwd_s, times, args
+        out, fwd_s, times, args = counted(tag, want, 2 + CFG_REPS, run)
+        med = statistics.median(times)
+        log(f"{tag} crop={CFG_CROP} n_seq={CFG_N_SEQ}: warm forward {fwd_s * 1e3:.2f} ms;"
+            f" {CFG_REPS} more: median {med:.2f} ms, min {min(times):.2f}, max {max(times):.2f}")
+        return out, med, args
+
+    # the scatter layout against the bucket layout, bf16 on the kernels
+    bucket_out, bucket_ms, args = request(base, long_fwd, "bucket request")
+    overflow = _overflows(base)
+    scatter = _same_weights(base, dataclasses.replace(base.config, se3_impl="scatter"))
+    scatter_out, scatter_ms, _ = request(scatter, scatter_fwd, "scatter request")
+    del scatter
+    d_logits, d_xyz = _max_gap(scatter_out, bucket_out)
+    log(f"scatter vs bucket (bf16, L={CFG_CROP}): median {scatter_ms:.2f} / {bucket_ms:.2f} ms"
+        f" ({scatter_ms / bucket_ms:.3f}x); logits max|d| {d_logits:.3e}, xyz max|d|"
+        f" {d_xyz:.3e}; bucket overflow per block {overflow} (three-track blocks, final)")
+
+    # long_chunk on the kernel path: the kernels hold no chunked intermediate
+    chunked = _same_weights(base, dataclasses.replace(base.config, long_chunk=CFG_LONG_CHUNK))
+    with torch.inference_mode():
+        out = counted(f"long_chunk={CFG_LONG_CHUNK} fast request", long_fwd, 1,
+                      lambda: chunked(*args))
+    d_logits, d_xyz = _max_gap(out, bucket_out)
+    log(f"long_chunk={CFG_LONG_CHUNK} on fast_config({CFG_CROP}): launches as unchunked;"
+        f" logits max|d| {d_logits:.3e}, xyz max|d| {d_xyz:.3e} against the unchunked request")
+    del chunked, out
+
+    # the template input: the served bf16 kernel path (launches, finite
+    # outputs), and the float32 kernel path against the float32 plain path,
+    # held to the envelope. bf16 against float32 is logged beside the same
+    # gap without the template: the bf16 trunk alone leaves the envelope at
+    # full depth (the envelope holds float32 paths, as phase 5 does)
+    L_t, n_t = CFG_TEMPLATE
+    tpl_cfg = dataclasses.replace(P.fast_config(L_t), use_template=True)
+    tpl_model = _same_weights(base, tpl_cfg)
+    msa, seq, aa = msa_features(load_a3m(A3M), n_seq=n_t, crop_len=L_t)
+    L = msa.shape[-1]
+    t_args = [torch.as_tensor(a, device="cuda") for a in (msa, seq, aa)]
+    g = torch.Generator(device="cuda").manual_seed(11)
+    template = torch.randn(1, L, L, tpl_cfg.d_template, generator=g, device="cuda")
+    per_fwd = {n: k.per_fwd for n, k in KERNELS.items()}
+
+    def forward(model, use_template, what, kernels=True):
+        args = t_args + [template] if use_template else t_args
+        with torch.inference_mode():
+            if not kernels:
+                return model(*args)
+            return counted(what, per_fwd, 1, lambda: model(*args))
+
+    outs = {}
+    for use_template in (True, False):
+        cfg = dataclasses.replace(tpl_cfg, use_template=use_template)
+        model = tpl_model if use_template else _same_weights(base, cfg)
+        tag = f"{'template' if use_template else 'no-template'} request L={L}"
+        bf16 = forward(model, use_template, tag)
+        _check_outputs(*bf16, 1, L)
+        plain_cfg = dataclasses.replace(cfg, compute_dtype="float32", attn_impl="xla")
+        f32 = forward(_same_weights(model, plain_cfg), use_template, "", kernels=False)
+        outs[use_template] = (_max_gap(bf16, f32),)
+        if use_template:
+            f32_k = forward(_same_weights(model, dataclasses.replace(cfg, compute_dtype="float32")),
+                            True, f"template request L={L} float32")
+            outs[True] += (_max_gap(f32_k, f32),)
+        del model, bf16, f32
+    tpl_model = None
+    (b_logits, b_xyz), (d_logits, d_xyz) = outs[True]
+    (n_logits, n_xyz), = outs[False]
+    log(f"template request L={L} n_seq={n_t}: float32 kernels vs float32 plain: logits max|d|"
+        f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ}); bf16"
+        f" kernels vs float32 plain: logits {b_logits:.3e}, xyz {b_xyz:.3e} (without the"
+        f" template: {n_logits:.3e}, {n_xyz:.3e})")
+    require(d_logits <= E2E_LOGITS and d_xyz <= E2E_XYZ,
+            "the template request leaves the full-depth envelope")
+
+    # the scatter layout against the dense one, float32 plain, crop 128
+    dense_cfg = dataclasses.replace(P.fast_config(CFG_DENSE_CROP), compute_dtype="float32",
+                                    attn_impl="xla")
+    require(dense_cfg.se3_impl == "dense", f"crop {CFG_DENSE_CROP} is not on the dense layout")
+    out, logs = {}, {}
+    for impl, knn_fn in (("dense", "knn_adjacency"), ("scatter", "knn_gather_indices")):
+        model = _same_weights(base, dataclasses.replace(dense_cfg, se3_impl=impl))
+        with NeighborLog(knn_fn) as rec:
+            logits, xyz, _, _, _ = P.predict(A3M, n_seq=32, crop=CFG_DENSE_CROP, device="cuda",
+                                             model=model)
+        out[impl], logs[impl] = (logits, xyz), rec
+        del model
+    d_logits, d_xyz = _max_gap(out["scatter"], out["dense"])
+    log(f"scatter vs dense f32 plain (crop {CFG_DENSE_CROP}, n_seq 32): logits max|d|"
+        f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ})")
+    _neighbor_diff("scatter vs dense", logs["scatter"], logs["dense"])
+    first = [_edges(rec.calls[0][1])[0] for rec in (logs["scatter"], logs["dense"])]
+    require(bool((first[0] == first[1]).all()),
+            "the first three-track block's scatter and dense edge sets differ")
+    require(d_logits <= E2E_LOGITS and d_xyz <= E2E_XYZ,
+            f"the scatter layout leaves the full-depth envelope at crop {CFG_DENSE_CROP}")
+
+    # long_chunk on the exact preset (float32, plain): the same result, less
+    # memory. The chunks change only the shapes of the products, so the runs
+    # differ in rounding, which the depth then grows (phase 5): the two-track
+    # stack's outputs (where the chunked modules run) and the coordinates the
+    # first three-track block takes are held to CFG_CHUNK_TOL, its edge sets
+    # to equality, and the whole model, run again on the unchunked run's
+    # neighborhoods (a kNN edge that flips on a rounding difference moves xyz),
+    # to the full-depth envelope
+    exact = _same_weights(base, RoseTTAFoldConfig(max_len=max(260, CFG_CROP)))
+    del base
+    res, logs, stack = {}, {}, {}
+    for run in ("unchunked", "chunked", "chunked pinned"):
+        model = exact if run == "unchunked" else _same_weights(
+            exact, dataclasses.replace(exact.config, long_chunk=CFG_LONG_CHUNK))
+        last = getattr(model, f"two_track_{model.config.n_two_track_blocks - 1}")
+        hook = last.register_forward_hook(
+            lambda mod, inp, out, run=run: stack.__setitem__(run, [t.clone() for t in out]))
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.inference_mode(), NeighborLog(
+                "knn_adjacency", logs["unchunked"] if run.endswith("pinned") else None) as rec:
+            t1 = time.perf_counter()
+            o = model(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        hook.remove()
+        res[run], logs[run] = (o[:2], torch.cuda.max_memory_allocated() / 2 ** 30, ms), rec
+        del model, o, last
+    exact = None
+    gap = {run: _max_gap(res[run][0], res["unchunked"][0]) for run in res}
+    d_stack = max(float((a - b).abs().max()) for a, b in zip(stack["chunked"], stack["unchunked"]))
+    (ca_c, e_c), (ca_u, e_u) = (logs[r].calls[0] for r in ("chunked", "unchunked"))
+    d_ca = float((ca_c - ca_u).abs().max())
+    log(f"long_chunk={CFG_LONG_CHUNK} vs unchunked, exact preset (float32 plain, crop"
+        f" {CFG_CROP}): two-track stack (msa, pair) max|d| {d_stack:.3e}, first three-track"
+        f" block's CA max|d| {d_ca:.3e} (<= {CFG_CHUNK_TOL}); logits max|d|"
+        f" {gap['chunked'][0]:.3e}, xyz max|d| {gap['chunked'][1]:.3e}; on the unchunked"
+        f" run's neighborhoods: logits {gap['chunked pinned'][0]:.3e} (<= {E2E_LOGITS}), xyz"
+        f" {gap['chunked pinned'][1]:.3e} (<= {E2E_XYZ}); peak memory {res['chunked'][1]:.2f}"
+        f" / {res['unchunked'][1]:.2f} GiB; first forward {res['chunked'][2]:.2f} /"
+        f" {res['unchunked'][2]:.2f} ms")
+    _neighbor_diff("chunked vs unchunked", logs["chunked"], logs["unchunked"])
+    require(d_stack <= CFG_CHUNK_TOL and d_ca <= CFG_CHUNK_TOL and bool((e_c == e_u).all()),
+            "long_chunk changes the two-track stack's result")
+    p_logits, p_xyz = gap["chunked pinned"]
+    require(p_logits <= E2E_LOGITS and p_xyz <= E2E_XYZ,
+            "long_chunk leaves the full-depth envelope on the same neighborhoods")
+    require(res["chunked"][1] < res["unchunked"][1], "long_chunk does not lower peak memory")
+    torch.cuda.empty_cache()
+    log(f"phase 4c: {time.perf_counter() - t0:.1f} s; launches "
+        + ", ".join(f"{n} {c}" for n, c in total.items()))
+    return total
+
+
 class NeighborLog:
     """Stands in for `ops.knn.<name>` (knn_adjacency on the dense layout,
     knn_bucket_indices on the bucket) while active: records each call's CA
@@ -1262,12 +1508,19 @@ class NeighborLog:
 
 def _edges(out):
     """(edges (B, L, L) bool, overflow or None) of a recorded output: the
-    dense adjacency itself, or the edges a bucket holds (source i into
-    destination j) and its overflow."""
+    dense adjacency itself (source i, destination j), the edges of the
+    scatter layout's src-major list in the same orientation, or the edges a
+    bucket holds (destination j, source i) and its overflow."""
     import torch
 
     if isinstance(out, torch.Tensor):
         return out, None
+    if len(out) == 2:  # knn_gather_indices read src-major: i -> dst_idx[b, i, s]
+        dst_idx, valid = out
+        B, L, _ = dst_idx.shape
+        dense = torch.zeros(B, L, L + 1, dtype=torch.bool, device=dst_idx.device)
+        dense.scatter_(2, torch.where(valid, dst_idx.long(), L), valid)
+        return dense[..., :L], None
     src_idx, valid, overflow = out
     B, L, _ = src_idx.shape  # empty slots write to a column past the last
     dense = torch.zeros(B, L, L + 1, dtype=torch.bool, device=src_idx.device)
@@ -1310,18 +1563,14 @@ def phase_e2e(long_a3m):
             out[run], logs[run] = (logits, xyz), rec
             del model
 
-        def gap(run):
-            d_logits = max(float((out["pallas"][0][k] - out[run][0][k]).abs().max())
-                           for k in out[run][0])
-            return d_logits, float((out["pallas"][1] - out[run][1]).abs().max())
-        d_logits, d_xyz = gap("xla")
+        d_logits, d_xyz = _max_gap(out["pallas"], out["xla"])
         log(f"end to end f32 kernels vs plain (crop {crop}, n_seq {n_seq}, SE(3)"
             f" {base.se3_impl}): logits max|d|"
             f" {d_logits:.3e} (<= {E2E_LOGITS}), xyz max|d| {d_xyz:.3e} (<= {E2E_XYZ});"
             f" max|xyz| {float(out['xla'][1].abs().max()):.1f}")
         _neighbor_diff("kernels vs plain", logs["pallas"], logs["xla"])
         if bucket:
-            p_logits, p_xyz = gap("xla pinned")
+            p_logits, p_xyz = _max_gap(out["pallas"], out["xla pinned"])
             log(f"  plain path on the kernel path's neighborhoods: logits max|d|"
                 f" {p_logits:.3e}, xyz max|d| {p_xyz:.3e}")
             _neighbor_diff("kernels vs plain pinned", logs["pallas"], logs["xla pinned"])
@@ -1593,6 +1842,8 @@ def main() -> int:
             long_a3m = write_long_a3m(tmp)
             long = phase_long_serving(long_a3m)
             log(f"phases 1-4b: {time.perf_counter() - t0:.1f} s")
+            configs = phase_configs(long_a3m)
+            log(f"phases 1-4c: {time.perf_counter() - t0:.1f} s")
             phase_e2e(long_a3m)
             log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
             training = phase_training(_train_pairs(tmp))
@@ -1603,9 +1854,10 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": f"rosettafold_tpu_torch/csrc/{spec.source}",
                 "replaces": f"rosettafold_tpu/ops/pallas/{spec.replaces}",
-                "launches": serving[name] + long[name] + training[name],
+                "launches": serving[name] + long[name] + configs[name] + training[name],
                 "launches_serving": serving[name], "launches_long": long[name],
-                "launches_training": training[name], **res.kernels[name]}
+                "launches_configs": configs[name], "launches_training": training[name],
+                **res.kernels[name]}
                for name, spec in KERNELS.items()]
     missing = [k["name"] for k in kernels if k["launches"] == 0 or "ms" not in k]
     if missing:

@@ -46,13 +46,13 @@ class RoseTTAFoldConfig:
 
     # "xla": plain ops. "pallas": the hand-written kernels.
     attn_impl: str = "xla"
-    # SE(3) layout: "dense", "bucket", "gather" (ported), "scatter" (not yet)
+    # SE(3) layout: "dense", "scatter", "bucket" or "gather"
     se3_impl: str = "dense"
     se3_bucket_capacity: Optional[int] = None
     # True: always exclude self edges from the kNN graph
     knn_exclude_self: bool = True
-    # row-chunked long-sequence paths: head_chunk (every pair ResNet, ported),
-    # long_chunk (attention and outer product, not yet)
+    # row-chunked long-sequence paths: head_chunk (every pair ResNet),
+    # long_chunk (the plain axial attention and outer product)
     long_chunk: Optional[int] = None
     head_chunk: Optional[int] = None
     # training / multi-device knobs (not ported yet)

@@ -40,7 +40,12 @@ class PerformerSelfAttention(nn.Module):
 
     forward(x, ln_params=(weight, bias, eps)) computes the whole pre-LN
     residual step x + dropout(attn(LN(x))); on the kernel path, with dropout
-    inactive, the LN and the residual fold into the kernel."""
+    inactive, the LN and the residual fold into the kernel.
+
+    `chunk_rows` (the long-L mode of JAX's `long_chunk`) runs the plain path
+    over chunks of at most that many rows (axis -3, after the axis-1
+    transpose), which bounds the (rows, h, L, m) feature maps; the kernel path
+    holds none and ignores it, as in JAX."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  nb_features: Optional[int] = None,
@@ -48,8 +53,9 @@ class PerformerSelfAttention(nn.Module):
                  feature_seed: int = 42, kernel_eps: float = 1e-3,
                  softmax_eps: float = 1e-4, attn_impl: str = "xla",
                  fused_favor_min_l: Optional[int] = None,
-                 attend_axis: int = -2, dtype=None):
+                 attend_axis: int = -2, dtype=None, chunk_rows: Optional[int] = None):
         super().__init__()
+        self.chunk_rows = chunk_rows
         assert attend_axis in (-2, 1)
         self.heads, self.dim_head = heads, dim_head
         self.generalized = generalized_attention
@@ -111,6 +117,17 @@ class PerformerSelfAttention(nn.Module):
     def _plain(self, x):
         if self.attend_axis == 1:
             x = x.transpose(1, 2)
+        c = self.chunk_rows
+        if c is not None and x.ndim >= 3 and x.shape[-3] > c:
+            out = torch.cat([self._attend(x[..., i:i + c, :, :])
+                             for i in range(0, x.shape[-3], c)], dim=-3)
+        else:
+            out = self._attend(x)
+        if self.attend_axis == 1:
+            out = out.transpose(1, 2)
+        return out
+
+    def _attend(self, x):
         q = self._split_heads(self.to_q(x))
         k = self._split_heads(self.to_k(x))
         v = self._split_heads(self.to_v(x))
@@ -118,7 +135,4 @@ class PerformerSelfAttention(nn.Module):
             q, k, v, self.projection, generalized=self.generalized,
             kernel_eps=self.kernel_eps, softmax_eps=self.softmax_eps)
         out = out.movedim(-3, -2)
-        out = self.to_out(out.reshape(*out.shape[:-2], -1))
-        if self.attend_axis == 1:
-            out = out.transpose(1, 2)
-        return out
+        return self.to_out(out.reshape(*out.shape[:-2], -1))

@@ -6,7 +6,7 @@ import torch
 from torch import nn
 
 from ..ops.sinusoidal import gather_pe, sinusoidal_table
-from .layers import Dense
+from .layers import Dense, LayerNorm
 
 
 class SinusoidalPositionalEncoding(nn.Module):
@@ -59,26 +59,36 @@ class MsaEmbedding(nn.Module):
 
 
 class PairEmbedding(nn.Module):
-    """Initial pair representation: seq (B, L), aa_idx (B, L) -> (B, L, L, d_pair).
-    The template input is not ported yet."""
+    """Initial pair representation: seq (B, L), aa_idx (B, L) and, with
+    use_template, template (B, L, L, d_template) -> (B, L, L, d_pair). The
+    features (row- and column-tiled residue embeddings, the log sequence
+    separation and the LayerNormed template) are projected to d_pair and the
+    2D positional encoding is added."""
 
     def __init__(self, d_input: int = 21, d_pair: int = 288, max_len: int = 260,
-                 p_pe_drop: float = 0.1, use_template: bool = False):
+                 p_pe_drop: float = 0.1, use_template: bool = False, d_template: int = 64):
         super().__init__()
-        if use_template:
-            raise NotImplementedError("the template path is not ported yet")
+        self.use_template = use_template
         half = d_pair // 2
         self.embed_seq = nn.Embedding(d_input, half)
-        self.proj = Dense(2 * half + 1, d_pair)
+        if use_template:
+            self.ln_template = LayerNorm(d_template, 1e-5)
+        self.proj = Dense(2 * half + 1 + (d_template if use_template else 0), d_pair)
         self.pos_enc = SinusoidalPositionalEncoding2D(d_pair, max_len)
 
-    def forward(self, seq, aa_idx):
+    def forward(self, seq, aa_idx, template=None):
+        if not self.use_template and template is not None:
+            raise ValueError("[PairEmbedding]: template is not None but use_template is False")
         L = seq.shape[-1]
         emb = self.embed_seq(seq.long())
         B, _, half = emb.shape
         left = emb[:, None, :, :].expand(B, L, L, half)
         right = emb[:, :, None, :].expand(B, L, L, half)
         dist = aa_idx[:, :, None] - aa_idx[:, None, :]
-        seq_sep = torch.log(dist.abs().float() + 1.0)[..., None]
-        x = self.proj(torch.cat([left, right, seq_sep], dim=-1))
+        feats = [left, right, torch.log(dist.abs().float() + 1.0)[..., None]]
+        if self.use_template:
+            if template is None:
+                raise ValueError("[PairEmbedding]: use_template=True requires template")
+            feats.append(self.ln_template(template))
+        x = self.proj(torch.cat(feats, dim=-1))
         return self.pos_enc(x, aa_idx)

@@ -7,8 +7,9 @@ port, through the CUDA kernels of ops/cuda/. Each module's crossover field
 default 128 as in JAX) moves that point; below it both run plain math.
 `row_chunk` (the conv block) and `ff_chunk` (the plain FF step) are the
 long-L inference modes of JAX's `conv_chunk`: the same results over row
-chunks (models/resnet.py). The row-chunked attention and outer product
-(`long_chunk`) are not ported.
+chunks (models/resnet.py). `long_chunk` row-chunks the plain outer product
+(`chunk_size`) and the plain axial attention (`chunk_rows`); kernels E and C
+hold no such intermediates and ignore it, as in JAX.
 """
 
 from __future__ import annotations
@@ -33,13 +34,15 @@ def symmetrize(x: torch.Tensor) -> torch.Tensor:
 
 
 class OuterProductMean(nn.Module):
-    """Outer-product sum over MSA rows -> pair features, then LN + Linear."""
+    """Outer-product sum over MSA rows -> pair features, then LN + Linear.
+    `chunk_size` computes the plain path over chunks of rows i, so the
+    (B, L, L, u*u) outer product never materializes whole."""
 
     def __init__(self, in_features: int, out_features: int, impl: str = "xla",
-                 fused_min_l: int = FUSED_MIN_L, dtype=None):
+                 fused_min_l: int = FUSED_MIN_L, dtype=None, chunk_size=None):
         super().__init__()
         self.in_features, self.impl, self.dtype = in_features, impl, dtype
-        self.fused_min_l = fused_min_l
+        self.fused_min_l, self.chunk_size = fused_min_l, chunk_size
         self.ln = LayerNorm(in_features ** 2, LN_EPS)
         self.to_out = Dense(in_features ** 2, out_features, dtype=dtype)
 
@@ -53,9 +56,15 @@ class OuterProductMean(nn.Module):
                 x.float(), y, self.ln.weight, self.ln.bias,
                 self.to_out.weight.t().to(x.dtype), self.to_out.bias.float(), LN_EPS,
                 self.dtype or torch.float32)
-        op = torch.einsum("bniu,bnjv->bijuv", x, y)
-        op = op.reshape(*op.shape[:3], self.in_features ** 2)
-        return self.to_out(self.ln(op))
+
+        def block(x_rows):
+            op = torch.einsum("bniu,bnjv->bijuv", x_rows, y)
+            return self.to_out(self.ln(op.reshape(*op.shape[:3], self.in_features ** 2)))
+
+        ranges = chunks(x.shape[2], self.chunk_size)
+        if len(ranges) == 1:
+            return block(x)
+        return torch.cat([block(x[:, :, lo:hi]) for lo, hi in ranges], dim=1)
 
 
 class PairUpdateWithMsa(nn.Module):
@@ -66,7 +75,8 @@ class PairUpdateWithMsa(nn.Module):
 
     def __init__(self, d_msa: int, d_proj: int = 32, d_pair: int = 288, n_heads: int = 12,
                  p_dropout: float = 0.1, attn_impl: str = "xla",
-                 conv_fused_min_l: int = FUSED_MIN_L, dtype=None, row_chunk=None):
+                 conv_fused_min_l: int = FUSED_MIN_L, dtype=None, row_chunk=None,
+                 long_chunk=None):
         super().__init__()
         self.d_pair, self.attn_impl, self.dtype = d_pair, attn_impl, dtype
         self.row_chunk = row_chunk
@@ -75,7 +85,8 @@ class PairUpdateWithMsa(nn.Module):
         self.proj_msa = Dense(d_msa, d_proj)
         self.proj_msa_ln_out = LayerNorm(d_proj, LN_EPS)
         self.poswise_weight = PositionWiseWeightFactor(d_proj, 1, p_dropout)
-        self.outer_product_mean = OuterProductMean(d_proj, d_pair, impl=attn_impl, dtype=dtype)
+        self.outer_product_mean = OuterProductMean(d_proj, d_pair, impl=attn_impl, dtype=dtype,
+                                                   chunk_size=long_chunk)
         self.ln_coevol_feat = LayerNorm(d_pair, LN_EPS)
         self.ln_pair = LayerNorm(d_pair, LN_EPS)
         self.d2p = 2 * d_proj
@@ -141,13 +152,15 @@ class PairUpdateWithAxialAttentionLayer(nn.Module):
     def __init__(self, d_pair: int, d_ff: int, n_heads: int = 8, p_dropout: float = 0.1,
                  feature_seed: int = 42, performer_dim_head: int = 64,
                  attn_impl: str = "xla", fused_favor_min_l=None,
-                 ff_fused_min_l: int = FUSED_MIN_L, dtype=None, ff_chunk=None):
+                 ff_fused_min_l: int = FUSED_MIN_L, dtype=None, ff_chunk=None,
+                 long_chunk=None):
         super().__init__()
         self.attn_impl, self.dtype, self.ff_chunk = attn_impl, dtype, ff_chunk
         self.ff_fused_min_l, self.p_dropout = ff_fused_min_l, p_dropout
         kw = dict(dim=d_pair, heads=n_heads, dim_head=performer_dim_head,
                   p_dropout=p_dropout, generalized_attention=True,
-                  attn_impl=attn_impl, fused_favor_min_l=fused_favor_min_l, dtype=dtype)
+                  attn_impl=attn_impl, fused_favor_min_l=fused_favor_min_l, dtype=dtype,
+                  chunk_rows=long_chunk)
         self.row_attn = PerformerSelfAttention(feature_seed=feature_seed, attend_axis=1, **kw)
         self.col_attn = PerformerSelfAttention(feature_seed=feature_seed + 1, **kw)
         self.ln_row = LayerNorm(d_pair, LN_EPS)
@@ -191,7 +204,7 @@ class PairUpdateWithAxialAttention(nn.Module):
                  n_encoder_layers: int = 4, feature_seed: int = 42,
                  performer_dim_head: int = 64, attn_impl: str = "xla",
                  fused_favor_min_l=None, ff_fused_min_l: int = FUSED_MIN_L, dtype=None,
-                 ff_chunk=None):
+                 ff_chunk=None, long_chunk=None):
         super().__init__()
         self.n = n_encoder_layers
         for i in range(n_encoder_layers):
@@ -199,7 +212,7 @@ class PairUpdateWithAxialAttention(nn.Module):
                 d_pair, d_ff, n_heads, p_dropout, feature_seed=feature_seed + 2 * i,
                 performer_dim_head=performer_dim_head, attn_impl=attn_impl,
                 fused_favor_min_l=fused_favor_min_l, ff_fused_min_l=ff_fused_min_l,
-                dtype=dtype, ff_chunk=ff_chunk))
+                dtype=dtype, ff_chunk=ff_chunk, long_chunk=long_chunk))
 
     def forward(self, x):
         for i in range(self.n):

@@ -23,7 +23,10 @@ n_neighbors[i] (`k_dynamic`), as JAX's scanned block does: the dense mask is
 the same as a top-k at n_neighbors[i], but the bucket capacity follows
 K_max. Unscanned, each block takes its own n_neighbors[i]; the final block
 32. `cfg.head_chunk` row-chunks every pair ResNet (each block's and the
-head's), as JAX passes it on as `conv_chunk`.
+head's), as JAX passes it on as `conv_chunk`; `cfg.long_chunk` row-chunks
+each block's plain outer product and axial attention. With
+`cfg.use_template` the model takes a template (B, L, L, d_template) as its
+fourth input.
 """
 
 from __future__ import annotations
@@ -40,8 +43,7 @@ from .heads import PredictionHead
 from .layers import ConvNHWC, Dense, torch_dtype
 from .msa import MsaUpdateUsingSelfAttention, MsaUpdateWithPair, MsaUpdateWithPairAndCoord
 from .pair import PairUpdateWithAxialAttention, PairUpdateWithMsa
-from .structure import (SE3_IMPLS, CoordUpdateWithMsaAndPair,
-                        InitialCoordGenerationWithMsaAndPair)
+from .structure import CoordUpdateWithMsaAndPair, InitialCoordGenerationWithMsaAndPair
 
 
 class TwoTrackBlock(nn.Module):
@@ -50,7 +52,7 @@ class TwoTrackBlock(nn.Module):
     def __init__(self, d_msa: int, d_pair: int, n_encoder_layers: int,
                  p_dropout: float = 0.1, feature_seed: int = 42,
                  performer_dim_head: int = 64, attn_impl: str = "xla", dtype=None,
-                 conv_chunk=None):
+                 conv_chunk=None, long_chunk=None):
         super().__init__()
         self.msa_update_using_self_att = MsaUpdateUsingSelfAttention(
             d_msa, d_msa * 4, n_heads=12, p_dropout=p_dropout,
@@ -58,12 +60,12 @@ class TwoTrackBlock(nn.Module):
             performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype)
         self.pair_update_with_msa = PairUpdateWithMsa(
             d_msa, 32, d_pair, n_heads=12, p_dropout=p_dropout, attn_impl=attn_impl,
-            dtype=dtype, row_chunk=conv_chunk)
+            dtype=dtype, row_chunk=conv_chunk, long_chunk=long_chunk)
         self.pair_update_with_axial_attention = PairUpdateWithAxialAttention(
             d_pair, d_pair * 4, n_heads=8, p_dropout=p_dropout,
             n_encoder_layers=n_encoder_layers, feature_seed=feature_seed + 100,
             performer_dim_head=performer_dim_head, attn_impl=attn_impl, dtype=dtype,
-            ff_chunk=conv_chunk)
+            ff_chunk=conv_chunk, long_chunk=long_chunk)
         self.msa_update_with_pair = MsaUpdateWithPair(
             d_msa, d_pair, n_heads=4, n_encoder_layers=n_encoder_layers,
             p_dropout=p_dropout, dtype=dtype)
@@ -87,7 +89,8 @@ class ThreeTrackBlock(nn.Module):
         self.two_track = TwoTrackBlock(
             cfg.d_msa, cfg.d_pair, cfg.n_encoder_layers, cfg.p_dropout,
             feature_seed=feature_seed, performer_dim_head=cfg.performer.dim_head,
-            attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk)
+            attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk,
+            long_chunk=cfg.long_chunk)
         self.coord_update_with_msa_and_pair = CoordUpdateWithMsaAndPair(
             cfg.d_msa, cfg.d_pair, cfg.d_node, cfg.d_edge, cfg.d_state,
             n_neighbors=n_neighbors, p_dropout=cfg.p_dropout,
@@ -110,20 +113,6 @@ class ThreeTrackBlock(nn.Module):
         return msa, pair, xyz
 
 
-def check_supported(cfg):
-    """Raise for configurations whose JAX path this port does not have yet."""
-    if cfg.use_template:
-        raise NotImplementedError("the template input is not ported yet")
-    if cfg.se3_impl not in SE3_IMPLS:
-        raise NotImplementedError(
-            f"se3_impl={cfg.se3_impl!r}: the {cfg.se3_impl} SE(3) layout is not ported yet"
-            f" (the port has {', '.join(SE3_IMPLS)})")
-    if cfg.long_chunk is not None:
-        raise NotImplementedError(
-            "long_chunk: the row-chunked attention and outer product of the long-L path"
-            " are not ported yet")
-
-
 class RoseTTAFold(nn.Module):
     """Top-level three-track model. Build with a RoseTTAFoldConfig; `device`
     places parameters and buffers; `seed` draws a random init in the spirit of
@@ -132,17 +121,18 @@ class RoseTTAFold(nn.Module):
     def __init__(self, config, device=None, seed: int = 0, init: bool = True):
         super().__init__()
         cfg = self.config = config
-        check_supported(cfg)
         dtype = torch_dtype(cfg.compute_dtype)
         self.dtype = dtype
         self.msa_emb = MsaEmbedding(cfg.d_input, cfg.d_msa, cfg.max_len, cfg.p_dropout)
-        self.pair_emb = PairEmbedding(cfg.d_input, cfg.d_pair, cfg.max_len, cfg.p_dropout)
+        self.pair_emb = PairEmbedding(cfg.d_input, cfg.d_pair, cfg.max_len, cfg.p_dropout,
+                                      use_template=cfg.use_template, d_template=cfg.d_template)
         for i in range(cfg.n_two_track_blocks):
             seed_i = 42 if cfg.scan_blocks else 42 + 1000 * i
             self.add_module(f"two_track_{i}", TwoTrackBlock(
                 cfg.d_msa, cfg.d_pair, cfg.n_encoder_layers, cfg.p_dropout,
                 feature_seed=seed_i, performer_dim_head=cfg.performer.dim_head,
-                attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk))
+                attn_impl=cfg.attn_impl, dtype=dtype, conv_chunk=cfg.head_chunk,
+                long_chunk=cfg.long_chunk))
         self.initial_coords = InitialCoordGenerationWithMsaAndPair(
             cfg.d_msa, cfg.d_pair, cfg.d_node, cfg.d_edge, n_heads=4, n_layers=4,
             p_dropout=cfg.p_dropout, d_input=cfg.d_input, dtype=dtype)
@@ -171,10 +161,10 @@ class RoseTTAFold(nn.Module):
             return checkpoint(module, *args, use_reentrant=False)
         return module(*args)
 
-    def forward(self, msa, seq, aa_idx):
+    def forward(self, msa, seq, aa_idx, template=None):
         cfg = self.config
         x = self.msa_emb(msa, aa_idx)
-        pair = self.pair_emb(seq, aa_idx)
+        pair = self.pair_emb(seq, aa_idx, template)
         seq_onehot = F.one_hot(seq.long(), cfg.d_input).to(x.dtype)
         if self.dtype is not None:
             pair = pair.to(self.dtype)  # bf16 pair stream between blocks

@@ -1,14 +1,20 @@
-"""SE(3)-equivariant transformer on masked dst-major neighborhoods (port of
-the dense and gather layouts of rosettafold_tpu/models/se3.py). float32
-throughout.
+"""SE(3)-equivariant transformer on masked kNN neighborhoods (port of
+rosettafold_tpu/models/se3.py: the dense, gather and scatter layouts).
+float32 throughout.
 
-Features are dicts {degree: (B, L, multiplicity, 2*degree+1)}; edge tensors
-are dst-major: T[b, j, s] describes the edge from source slot s into j,
-rel_pos[b, j, s] = x_j - x_src. Dense layout: slot s is node s (S == L).
-Gather layout: src_idx (B, L, S) names each slot's node, and the plain path
-gathers the node features per layer to (B, L, S, m, 2d+1). With
-impl="pallas" each GSE3Res runs its V/K partial convolutions and attention
-through kernel B (ops/cuda/se3_attend.py), which reads the sources in place.
+Features are dicts {degree: (B, L, multiplicity, 2*degree+1)}. On the dense
+and gather layouts edge tensors are dst-major: T[b, j, s] describes the edge
+from source slot s into j, rel_pos[b, j, s] = x_j - x_src. Dense layout: slot
+s is node s (S == L). Gather layout: src_idx (B, L, S) names each slot's
+node, and the plain path gathers the node features per layer to
+(B, L, S, m, 2d+1). With impl="pallas" each GSE3Res runs its V/K partial
+convolutions and attention through kernel B (ops/cuda/se3_attend.py), which
+reads the sources in place. Scatter layout: edge tensors are src-major,
+T[b, i, s] describes the edge from i into dst_idx[b, i, s], rel_pos = x_dst -
+x_i; the source feature is node i's own row, and the softmax and the sum
+group the edges by destination through segment ops (`index_add_`,
+`scatter_reduce_`). As in JAX, the scatter layout runs these plain ops even
+under impl="pallas": kernel B is not launched there.
 """
 
 from __future__ import annotations
@@ -89,9 +95,10 @@ class PairwiseConv(nn.Module):
 
 class GConvSE3Partial(nn.Module):
     """Node -> edge partial convolution (the K and V embeddings of the
-    attention). h[d] is (B, L, m, 2d+1) on the dense layout and the gathered
-    (B, J, S, m, 2d+1) on the gather layout. Output per degree:
-    (B, m_out, 2d_out+1, J, S)."""
+    attention). h[d] is (B, L, m, 2d+1) on the dense and scatter layouts and
+    the gathered (B, J, S, m, 2d+1) on the gather layout. Output per degree:
+    (B, m_out, 2d_out+1, J, S), or (B, m_out, 2d_out+1, I, S) keyed by source
+    with src_major (the scatter layout: each slot's source is the row)."""
 
     def __init__(self, f_in: Fiber, f_out: Fiber, edge_dim: int = 0):
         super().__init__()
@@ -101,13 +108,15 @@ class GConvSE3Partial(nn.Module):
                 self.add_module(f"pc_{di}_{do}", PairwiseConv(
                     di, f_in.dict[di], do, f_out.dict[do], edge_dim))
 
-    def forward(self, h: Features, edge_feat, basis) -> Features:
+    def forward(self, h: Features, edge_feat, basis, src_major: bool = False) -> Features:
         out = {}
         for do in self.f_out.degrees:
             msg = None
             for di in self.f_in.degrees:
                 R = getattr(self, f"pc_{di}_{do}")(edge_feat)  # (B,J,S,mo,mi,nf)
-                if h[di].ndim == 4:  # dense: S == L, the node features themselves
+                if src_major:  # scatter: row i's feature, shared by its S slots
+                    t = torch.einsum("bismnf,bicn->bmfcis", basis[f"{di},{do}"], h[di])
+                elif h[di].ndim == 4:  # dense: S == L, the node features themselves
                     t = torch.einsum("bjimnf,bicn->bmfcji", basis[f"{di},{do}"], h[di])
                 else:
                     t = torch.einsum("bjsmnf,bjscn->bmfcjs", basis[f"{di},{do}"], h[di])
@@ -185,19 +194,46 @@ def _masked_softmax(logits, mask, dim: int):
     return torch.where(mask, att, torch.zeros_like(att))
 
 
+def _segment_sum(x, ids, n: int):
+    """x (B, E, F) summed into n segments per batch by ids (B, E) -> (B, n, F)."""
+    B, E, F = x.shape
+    flat = (ids + n * torch.arange(B, device=ids.device)[:, None]).reshape(-1)
+    return x.new_zeros(B * n, F).index_add_(0, flat, x.reshape(B * E, F)).reshape(B, n, F)
+
+
+def _segment_max(x, ids, n: int):
+    """Per-segment max of x (B, E, F) -> (B, n, F); an empty segment is -inf."""
+    B, E, F = x.shape
+    flat = (ids + n * torch.arange(B, device=ids.device)[:, None]).reshape(-1)
+    out = x.new_full((B * n, F), float("-inf"))
+    out.scatter_reduce_(0, flat[:, None].expand(-1, F), x.reshape(B * E, F), "amax",
+                        include_self=False)
+    return out.reshape(B, n, F)
+
+
+def _take(x, ids):
+    """x (B, n, F) read at ids (B, E) -> (B, E, F)."""
+    return torch.gather(x, 1, ids[..., None].expand(-1, -1, x.shape[-1]))
+
+
 class GMABSE3(nn.Module):
-    """Equivariant multi-head attention over incoming edges, dense layout."""
+    """Equivariant multi-head attention over incoming edges: dense and
+    gather layouts (softmax over the slots of each destination), and the
+    scatter layout with dst_idx (segment softmax over the edges that point
+    at each destination)."""
 
     def __init__(self, f_value: Fiber, f_key: Fiber, n_heads: int):
         super().__init__()
         self.f_value, self.f_key, self.n_heads = f_value, f_key, n_heads
 
-    def forward(self, v: Features, k: Features, q: Features, mask) -> Features:
+    def forward(self, v: Features, k: Features, q: Features, mask, dst_idx=None) -> Features:
         h = self.n_heads
         kh = torch.cat([
             k[d].reshape(k[d].shape[0], h, (m // h) * (2 * d + 1), *k[d].shape[-2:])
             for d, m in self.f_key.dict.items()], dim=2)  # (B, h, ck, J, S)
         qh = fiber2head(q, h, self.f_key)  # (B, J, h, ck)
+        if dst_idx is not None:
+            return self._scatter_attend(v, kh, qh, mask, dst_idx)
         e = torch.einsum("bhcjs,bjhc->bhjs", kh, qh) / math.sqrt(self.f_key.n_features)
         att = _masked_softmax(e, mask[:, None], dim=-1)
         out = {}
@@ -205,6 +241,33 @@ class GMABSE3(nn.Module):
             vd = v[d].reshape(v[d].shape[0], h, m // h, 2 * d + 1, *v[d].shape[-2:])
             agg = torch.einsum("bhjs,bhcmjs->bjhcm", att, vd)
             out[d] = agg.reshape(*agg.shape[:2], m, 2 * d + 1)
+        return out
+
+    def _scatter_attend(self, v: Features, kh, qh, valid, dst_idx) -> Features:
+        """edge_softmax and sum over the src-major edge list: kh (B, h, ck,
+        I, S), qh (B, L, h, ck), dst_idx and valid (B, I, S). Invalid edges
+        go to a segment L past the last and are dropped; a destination with
+        no valid edge gets 0."""
+        h = self.n_heads
+        B, I, S = dst_idx.shape
+        L, ck = qh.shape[1], qh.shape[-1]
+        E = I * S
+        idx, ok = dst_idx.long().reshape(B, E), valid.reshape(B, E)
+        ids = torch.where(ok, idx, L)
+        # q at each edge's destination (an invalid edge's index is never read)
+        q_edge = _take(qh.reshape(B, L, h * ck), torch.where(ok, idx, 0)).reshape(B, I, S, h, ck)
+        e = torch.einsum("bhcis,bishc->bhis", kh, q_edge) / math.sqrt(self.f_key.n_features)
+        e = torch.where(valid[:, None], e, float("-inf")).reshape(B, h, E).transpose(1, 2)
+        seg_max = torch.nan_to_num(_segment_max(e, ids, L + 1), neginf=0.0)  # (B, L+1, h)
+        z = torch.exp(e - _take(seg_max, ids))                                # (B, E, h)
+        z = torch.where(torch.isfinite(e), z, 0.0)
+        att = z / torch.clamp(_take(_segment_sum(z, ids, L + 1), ids), min=1e-20)
+        out = {}
+        for d, m in self.f_value.dict.items():
+            vd = v[d].reshape(B, h, m // h, 2 * d + 1, E)
+            weighted = (att.transpose(1, 2)[:, :, None, None] * vd).reshape(B, -1, E)
+            agg = _segment_sum(weighted.transpose(1, 2), ids, L + 1)[:, :L]  # (B, L, F)
+            out[d] = agg.reshape(B, L, m, 2 * d + 1)
         return out
 
 
@@ -237,10 +300,16 @@ class GSE3Res(nn.Module):
         else:
             self.project = G1x1SE3(cat_fiber, f_out)
 
-    def forward(self, h: Features, edge_feat, basis, mask, src_idx=None) -> Features:
-        """src_idx (B, J, S) int32: the gather layout, else dense."""
+    def forward(self, h: Features, edge_feat, basis, mask, src_idx=None,
+                dst_idx=None) -> Features:
+        """src_idx (B, J, S) int32: the gather layout; dst_idx (B, I, S) int32:
+        the scatter layout, on the plain path under either impl (as JAX's
+        SE3Transformer runs it); neither: dense."""
         q = self.q(h)
-        if self.fused:
+        if dst_idx is not None:
+            z = self.attn(self.v(h, edge_feat, basis, src_major=True),
+                          self.k(h, edge_feat, basis, src_major=True), q, mask, dst_idx)
+        elif self.fused:
             stacked = se3_attend.stack_weights(self.v, self.k, self.meta)
             qh = fiber2head(q, self.n_heads, self.f_mid_in)
             qh = qh.reshape(*qh.shape[:2], -1).contiguous()
@@ -264,7 +333,8 @@ class SE3Transformer(nn.Module):
 
     Call: h0 (B, L, l0_in, 1), h1 (B, L, l1_in, 3), edge_feat (B, L, S, edge),
     rel_pos (B, L, S, 3) [= x_dst - x_src], mask (B, L, S) bool, and for the
-    gather layout src_idx (B, L, S) int32 (dense: S == L, no src_idx).
+    gather layout src_idx (B, L, S) int32, for the scatter layout dst_idx
+    (B, L, S) int32 with src-major edge tensors (dense: S == L, neither).
     Returns {0: (B, L, l0_out, 1), 1: (B, L, l1_out, 3)}."""
 
     def __init__(self, num_layers: int = 2, num_channels: int = 16, num_degrees: int = 2,
@@ -290,13 +360,13 @@ class SE3Transformer(nn.Module):
             self.register_buffer(f"q_{key}", table, persistent=False)
             self._q_keys.append(key)
 
-    def forward(self, h0, h1, edge_feat, rel_pos, mask, src_idx=None) -> Features:
+    def forward(self, h0, h1, edge_feat, rel_pos, mask, src_idx=None, dst_idx=None) -> Features:
         tables = {k: getattr(self, f"q_{k}") for k in self._q_keys}
         basis = so3.equivariant_basis(rel_pos, self.max_degree, tables)
         r = so3.edge_radii(rel_pos)
         feat = torch.cat([edge_feat.float(), r.float()], dim=-1)
         h = {0: h0.float(), 1: h1.float()}
         for i in range(self.num_layers):
-            h = getattr(self, f"res_{i}")(h, feat, basis, mask, src_idx)
+            h = getattr(self, f"res_{i}")(h, feat, basis, mask, src_idx, dst_idx)
             h = getattr(self, f"norm_{i}")(h)
-        return self.res_out(h, feat, basis, mask, src_idx)
+        return self.res_out(h, feat, basis, mask, src_idx, dst_idx)

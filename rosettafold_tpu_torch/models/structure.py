@@ -1,6 +1,6 @@
 """Structure-track modules (port of rosettafold_tpu/models/structure.py; SE(3)
-layouts "dense", "gather" and "bucket"): graph transformer, initial
-coordinates, SE(3) refinement."""
+layouts "dense", "scatter", "bucket" and "gather"): graph transformer,
+initial coordinates, SE(3) refinement."""
 
 from __future__ import annotations
 
@@ -103,7 +103,7 @@ class InitialCoordGenerationWithMsaAndPair(nn.Module):
         return xyz.reshape(*xyz.shape[:2], 3, 3)
 
 
-SE3_IMPLS = ("dense", "gather", "bucket")
+SE3_IMPLS = ("dense", "scatter", "bucket", "gather")
 
 
 class CoordUpdateWithMsaAndPair(nn.Module):
@@ -112,10 +112,13 @@ class CoordUpdateWithMsaAndPair(nn.Module):
     projected pair; the type-1 output displaces CA first, then N and C
     relative to the new CA.
 
-    se3_impl: "dense", the exact incoming sets on an (L, L) mask; "bucket",
-    the same sets in C static slots per destination (`knn_bucket_indices`,
-    capacity `bucket_capacity`); "gather", the forward-top-k approximation
-    on (L, S) slots. The last two hold O(L*S) edge tensors. With k_dynamic the
+    se3_impl: "dense", the exact incoming sets on an (L, L) mask; "scatter",
+    the same edges as a src-major list (slot s of source i points at
+    dst_idx[b, i, s], `knn_gather_indices`) aggregated at each destination by
+    segment ops, with no capacity; "bucket", the same sets in C static slots
+    per destination (`knn_bucket_indices`, capacity `bucket_capacity`);
+    "gather", the forward-top-k approximation on (L, S) slots. The last three
+    hold O(L*S) edge tensors. With k_dynamic the
     top-k is taken at n_neighbors and cut to its first k_dynamic slots (the
     scanned blocks' form). A bucket forward keeps its overflow (B,) int32 in
     `bucket_overflow` (JAX sows it as diagnostics/se3_bucket_overflow)."""
@@ -127,7 +130,7 @@ class CoordUpdateWithMsaAndPair(nn.Module):
                  k_dynamic=None):
         super().__init__()
         if se3_impl not in SE3_IMPLS:
-            raise NotImplementedError(f"se3_impl={se3_impl!r}: the port has {SE3_IMPLS}")
+            raise ValueError(f"se3_impl={se3_impl!r}: one of {SE3_IMPLS}")
         self.n_neighbors, self.knn_exclude_self = n_neighbors, knn_exclude_self
         self.se3_impl, self.bucket_capacity, self.k_dynamic = se3_impl, bucket_capacity, k_dynamic
         self.bucket_overflow = None
@@ -152,8 +155,18 @@ class CoordUpdateWithMsaAndPair(nn.Module):
         edge = self.edge_ln(F.elu(self.edge_embed(pair)))  # (B, i, j, de)
 
         ca = xyz[:, :, CA_IDX]
-        src_idx = None
-        if self.se3_impl == "dense":
+        src_idx = dst_idx = None
+        if self.se3_impl == "scatter":
+            # src-major: slot s of source i points at dst_idx[b, i, s]
+            dst_idx, mask = knn.knn_gather_indices(xyz, aa_idx, self.n_neighbors,
+                                                   k_dynamic=self.k_dynamic)
+            B, L, S = dst_idx.shape
+            idx = dst_idx.long()
+            ca_dst = torch.gather(ca, 1, idx.reshape(B, L * S, 1).expand(-1, -1, 3))
+            rel_pos = ca_dst.reshape(B, L, S, 3) - ca[:, :, None, :]  # dst - src
+            # w[b, i, s] = edge[b, i, dst_idx[b, i, s]]
+            edge_w = torch.gather(edge, 2, idx[..., None].expand(-1, -1, -1, edge.shape[-1]))
+        elif self.se3_impl == "dense":
             cond = knn.knn_adjacency(xyz, aa_idx, self.n_neighbors,
                                      exclude_self=self.knn_exclude_self,
                                      k_dynamic=self.k_dynamic)
@@ -178,7 +191,7 @@ class CoordUpdateWithMsaAndPair(nn.Module):
 
         h0 = node[..., None]
         h1 = xyz - ca[:, :, None, :]
-        out = self.se3(h0, h1, edge_w, rel_pos, mask, src_idx)
+        out = self.se3(h0, h1, edge_w, rel_pos, mask, src_idx, dst_idx)
         state = out[0][..., 0]
         disp = out[1]
         ca_new = ca + disp[:, :, CA_IDX]

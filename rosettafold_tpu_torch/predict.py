@@ -7,11 +7,15 @@ Usage:
         [--preset fast] [--device cuda]
 
 Without --params the weights are a random init drawn from --seed. --params
-takes a `torch.save`d state_dict of this port, e.g. one made from a JAX
-checkpoint with `bridge.state_dict_from_flax`. `--preset fast` serves a chain
-of any length on the CUDA kernels: the dense SE(3) layout up to 384 residues,
-the bucketed one above (kernel B on its gather layout), and above 1024 the
-row-chunked pair ResNets as well (`fast_config`).
+takes a `torch.save`d state_dict of this port: one saved from the port's own
+model, or a JAX checkpoint (`rosettafold_tpu.train_cli --ckpt-dir`) converted
+by `convert_jax_params.py` at the repository's root, which runs where JAX
+is. `--preset fast` serves a chain of any length on the CUDA kernels: the
+dense SE(3) layout up to 384 residues, the bucketed one above (kernel B on
+its gather layout), and above 1024 the row-chunked pair ResNets as well
+(`fast_config`). `predict(config=...)` serves any other configuration, e.g.
+the exact `se3_impl="scatter"` layout or `long_chunk`; a template input
+goes to the model itself (`RoseTTAFold.forward(msa, seq, aa_idx, template)`).
 """
 
 from __future__ import annotations
@@ -98,7 +102,8 @@ def main(argv=None):
     p.add_argument("--a3m", required=True)
     p.add_argument("--out", required=True, help="output PDB path")
     p.add_argument("--npz", default=None, help="optional 6D-logit npz output")
-    p.add_argument("--params", default=None, help="state_dict .pt (else random init)")
+    p.add_argument("--params", default=None,
+                   help="state_dict .pt, e.g. from convert_jax_params.py (else random init)")
     p.add_argument("--seed", type=int, default=0, help="random-init seed")
     p.add_argument("--n-seq", type=int, default=64)
     p.add_argument("--crop", type=int, default=None)

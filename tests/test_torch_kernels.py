@@ -18,6 +18,7 @@ import torch
 from rosettafold_tpu_torch import bridge
 from rosettafold_tpu_torch.models import resnet as tresnet
 from rosettafold_tpu_torch.models import se3 as tse3
+from rosettafold_tpu_torch.models import structure as tstruct
 from rosettafold_tpu_torch.models.rosettafold import init_like_flax
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import so3 as tso3
@@ -409,6 +410,43 @@ def test_se3_gather_kernel_matches_plain_on_card(cuda, name, L, S):
     assert (tatt.launches, tatt.gather_launches) == (before[0], before[1] + 1)
     for d in ref:
         torch.testing.assert_close(z[d], ref[d], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_se3_scatter_layout_on_card(cuda):
+    """The scatter SE(3) layout (plain segment ops, which use atomics on the
+    card, so it is held by tolerance) in the coordinate update at flagship
+    SE(3) width, L = 96, K = 16, with one residue that no edge points at (an
+    empty destination segment): on the card against the same module on the
+    CPU within 1e-4, and against the dense layout on the card within 2e-4
+    (tests/test_torch_configs.py); kernel B is not launched."""
+    L, K = 96, 16
+    g = torch.Generator().manual_seed(0)
+    kw = dict(d_msa=32, d_pair=16, d_node=64, d_edge=64, d_state=32, n_neighbors=K,
+              p_dropout=0.0, attn_impl="pallas")
+    scatter = tstruct.CoordUpdateWithMsaAndPair(se3_impl="scatter", **kw)
+    init_like_flax(scatter, g)
+    dense = tstruct.CoordUpdateWithMsaAndPair(se3_impl="dense", **kw)
+    dense.load_state_dict(scatter.state_dict())
+    xyz = (torch.cumsum(torch.randn(1, L, 1, 3, generator=g) * 2.2, 1)
+           + torch.randn(1, L, 3, 3, generator=g))
+    xyz[:, 40] += 1e3
+    aa = (10 * torch.arange(L))[None]  # no band edges
+    idx, valid = tknn.knn_gather_indices(xyz, aa, K)
+    assert 40 not in set(idx[valid].tolist())
+    args = (xyz, torch.randn(1, 4, L, 32, generator=g), torch.randn(1, L, L, 16, generator=g),
+            aa, torch.nn.functional.one_hot(torch.randint(0, 21, (1, L), generator=g), 21).float())
+    with torch.no_grad():
+        ref = scatter.eval()(*args)
+        on_card = [a.to(cuda) for a in args]
+        before = (tatt.launches, tatt.gather_launches)
+        out = scatter.to(cuda)(*on_card)
+        torch.cuda.synchronize()
+        assert (tatt.launches, tatt.gather_launches) == before
+        out_dense = dense.eval().to(cuda)(*on_card)
+    for a, b, c in zip(out, ref, out_dense):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(a, c, atol=2e-4, rtol=0)
 
 
 # (P, L, m, q/k std or None for dh^-0.25): the bench shape at L=512, a ragged

@@ -134,11 +134,20 @@ def test_fast_preset_range(length):
                                               ("long_chunk", 256, "long_chunk"),
                                               ("use_template", True, "template")])
 def test_unported_paths_raise(field, value, what):
-    """The scatter SE(3) layout, the long_chunk path and the template input
-    are not ported: the model refuses them and names what is missing."""
+    """The scatter SE(3) layout, the long_chunk path and the template input,
+    which the port once refused, are ported: the fast preset at L = 512
+    builds with each (on the meta device: structure only), and its modules
+    carry the option."""
     cfg = dataclasses.replace(tpredict.fast_config(512), **{field: value})
-    with torch.device("meta"), pytest.raises(NotImplementedError, match=what):
-        RoseTTAFold(cfg, init=False)
+    with torch.device("meta"):
+        model = RoseTTAFold(cfg, init=False)
+    blk = model.three_track_0
+    assert blk.coord_update_with_msa_and_pair.se3_impl == cfg.se3_impl
+    assert blk.two_track.pair_update_with_msa.outer_product_mean.chunk_size == cfg.long_chunk
+    axial = blk.two_track.pair_update_with_axial_attention.layer_0
+    assert axial.row_attn.chunk_rows == axial.col_attn.chunk_rows == cfg.long_chunk
+    assert hasattr(model.pair_emb, "ln_template") == cfg.use_template
+    assert getattr(cfg, field) == value, what
 
 
 def test_predict_cli_writes_pdb_npz_json(tmp_path, capsys):
