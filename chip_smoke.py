@@ -118,6 +118,19 @@ Phases (any failure exits non-zero and prints no result line):
      the float32 gradient envelope of the kernel path against the plain path
      at both shapes (loss within 1e-3 relative, gradient cosine >= 0.999,
      norms within 1e-2);
+  8. mesh: kernels A, G, C and C' split over tp = 2 and 4 as the tensor-
+     parallel train step splits them (A and G by blocks of the B*H = 12 head
+     problems at L = 128, N = 8; C and C' by blocks of the row problems at
+     (128, 128, 288) with flagship weights), each shard launched alone: the
+     joined outputs bit-equal to one whole launch, C''s weight-gradient
+     partials summed within phase 3b's bf16 bound; times a shard beside the
+     whole launch's. Then an NCCL process group of one rank on this card:
+     parallel.dryrun at tiny width, and fit through make_mesh(1) (dp = tp = 1)
+     at phase 7's configuration, B=1 / n_seq 8 / crop 128, 2 steps, its
+     launches counted, against fit without a mesh: losses and parameters
+     bit-equal (both on deterministic algorithms: cuDNN's default weight-
+     gradient sums vary from run to run). The machine has one card: no run
+     on several is made;
 then prints one JSON line of kernel results and, last, the contract line
 {"ok": true, "device": {...}}.
 """
@@ -1792,6 +1805,186 @@ def phase_training(pairs):
     return counts
 
 
+MESH_TPS = (2, 4)  # tp degrees phase 8 splits kernels A, G, C and C' over
+MESH_STEPS = 2  # fit steps of phase 8's world of one
+
+
+def _shard_blocks(n, tp):
+    return [(i * n // tp, (i + 1) * n // tp) for i in range(tp)]
+
+
+def _split_case(res, name, tag, whole, shard, n, exact, close=()):
+    """`shard(lo, hi)` on each of the tp blocks of the leading axis against
+    `whole()`: the outputs listed in `exact` joined along axis 0 must equal
+    the whole launch's bit for bit; those in `close` are per-shard partials
+    whose sum must fall within the bf16 tolerance of phase 3b (C''s weight
+    gradients). Logs and records the launches the wrapper counted for the
+    whole call and for the tp shard calls together, and the times."""
+    import torch
+
+    zero_counts()
+    want = whole()
+    whole_launches = read_counts()[name]
+    require(whole_launches > 0, f"{name} {tag}: the whole call launched no kernel")
+    rec = res.kernels[name].setdefault("mesh", {"whole_ms": cuda_time(whole, 5),
+                                                "whole_launches": whole_launches})
+    for tp in MESH_TPS:
+        blocks = _shard_blocks(n, tp)
+        zero_counts()
+        parts = [shard(lo, hi) for lo, hi in blocks]
+        torch.cuda.synchronize()
+        launches = read_counts()[name]
+        require(launches == tp * whole_launches,
+                f"{name} {tag}: {tp} shard calls launched {launches} times, not"
+                f" {tp} x {whole_launches}")
+        for i in exact:
+            got = torch.cat([p[i] for p in parts])
+            require(torch.equal(got, want[i]),
+                    f"{name} {tag}: output {i} of {tp} shards differs from the whole launch"
+                    f" (max|d| {float((got.float() - want[i].float()).abs().max()):.3e})")
+        worst = 0.0
+        for i in close:
+            got = sum(p[i].float() for p in parts)
+            ref = want[i].float()
+            d = (got - ref).abs()
+            bound = BF16_ATOL * max(1.0, float(ref.abs().max())) + BF16_RTOL * ref.abs()
+            require(bool((d <= bound).all()),
+                    f"{name} {tag}: summed partial {i} of {tp} shards outside the bf16 bound")
+            worst = max(worst, float(d.max()))
+        lo, hi = blocks[0]
+        ms = cuda_time(lambda: shard(lo, hi), 5)
+        rec[f"tp{tp}"] = {"shard_ms": ms, "shard_launches": launches,
+                          "summed_max_abs_err": worst}
+        log(f"mesh {name} {tag}: tp={tp}: {launches} launches over the {tp} shards"
+            f" ({whole_launches} for the whole call) bit-equal to the whole call"
+            f"{'' if not close else f', summed partials max|d| {worst:.3e}'};"
+            f" {ms:.4f} ms a shard beside {rec['whole_ms']:.4f} ms whole")
+
+
+def _world_of_one():
+    """An NCCL process group of one rank on card 0, through a file store."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store = dist.FileStore(os.path.join(tempfile.mkdtemp(), "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+
+
+def phase_mesh(res, pairs):
+    """8: (a) kernels A, G, C and C' split over tp = 2 and 4 as the tp path
+    splits them (A and G by head blocks of B*H = 12 at L = 128, N = 8; C and
+    C' by row problems at (B*L, L, 288) = (128, 128, 288), flagship weights),
+    each shard launched alone: outputs bit-equal to one whole launch, C''s
+    summed weight-gradient partials within phase 3b's bf16 bound; (b) an
+    NCCL process group of one rank: parallel.dryrun, then fit through
+    make_mesh(1) at the flagship config against fit without a mesh, loss and
+    parameters bit-equal (a collective of one rank is the identity)."""
+    import torch
+    import torch.distributed as dist
+
+    from rosettafold_tpu_torch.config import tiny_config
+    from rosettafold_tpu_torch.data.dataset import batches
+    from rosettafold_tpu_torch.ops import performer as favor
+    from rosettafold_tpu_torch.ops.cuda import fused_performer as fp
+    from rosettafold_tpu_torch.ops.cuda import tied_attention as ta
+    from rosettafold_tpu_torch.parallel import dryrun, mesh as pm
+    from rosettafold_tpu_torch.train.loop import fit
+
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(8)
+    bf = torch.bfloat16
+    # (a) A and G at the serving shape: B*H = 12 problems of L = 128, N*dh = 8 * 32
+    q, k = (_normal((12, 128, 256), 0.3, g, bf) for _ in range(2))
+    v, gout = (_normal((12, 128, 256), 1.0, g, bf) for _ in range(2))
+    _split_case(res, "tied_attention", "B*H=12 L=128 N=8 bf16",
+                lambda: ta.tied_attention_forward(q, k, v),
+                lambda lo, hi: ta.tied_attention_forward(q[lo:hi], k[lo:hi], v[lo:hi]),
+                12, exact=(0, 1))
+    out, lse = ta.tied_attention_forward(q, k, v)
+    _split_case(res, "tied_attention_bwd", "B*H=12 L=128 N=8 bf16",
+                lambda: ta.tied_attention_backward(q, k, v, out, lse, gout),
+                lambda lo, hi: ta.tied_attention_backward(q[lo:hi], k[lo:hi], v[lo:hi],
+                                                          out[lo:hi], lse[lo:hi], gout[lo:hi]),
+                12, exact=(0, 1, 2))
+    # C and C' on the row path: 128 problems of 128 positions, D = 288
+    D, HD = 288, 512
+    x = _normal((128, 128, D), 1.0, g, bf)
+    gy = _normal((128, 128, D), 0.05, g, bf)
+    gam, bet = 1.0 + _normal((D,), 0.1, g), _normal((D,), 0.1, g)
+    w = [_normal((D, HD), D ** -0.5, g, bf) for _ in range(3)]
+    w += [_normal((HD, D), HD ** -0.5, g, bf), _normal((D,), 0.1, g, bf)]
+    proj = torch.from_numpy(favor.gaussian_orthogonal_matrix(320, 64, 42)).cuda()
+    statics = (64 ** -0.25, 1e-3, 8, 64)
+
+    def c_fwd(lo=0, hi=128):
+        return (fp.fused_ln_performer_residual(x[lo:hi], gam, bet, *w, proj, *statics, 1e-5),)
+
+    def c_bwd(lo=0, hi=128):
+        return fp.performer_backward(x[lo:hi], (gam, bet, 1e-5), *w[:4], proj, *statics, 2,
+                                     gy[lo:hi])
+    _split_case(res, "fused_performer", "rows=128 L=128 LN+residual bf16",
+                c_fwd, c_fwd, 128, exact=(0,))
+    # dx per row bit-equal; dgamma, dbeta and the weight gradients are sums over rows
+    _split_case(res, "fused_performer_bwd", "rows=128 L=128 LN bf16",
+                c_bwd, c_bwd, 128, exact=(0,), close=(1, 2, 3, 4, 5, 6, 7))
+    del q, k, v, gout, out, lse, x, gy
+    log(f"phase 8a: {time.perf_counter() - t0:.1f} s")
+
+    # (b) a world of one: the dry run, then fit through the mesh
+    _world_of_one()
+    counts = dict.fromkeys(KERNELS, 0)
+    try:
+        mesh = pm.make_mesh(1)
+        log(f"mesh: {mesh} over NCCL ({dist.get_backend()}), world size {dist.get_world_size()}")
+        r = dryrun.dryrun(tiny_config(), device="cuda", mesh=mesh)
+        log(f"mesh dryrun {r['mesh']}: loss {r['metrics']['total']:.6f} grad_norm"
+            f" {r['metrics']['grad_norm']:.6f}, {r['rows']} batch row(s) a rank")
+        require(math.isfinite(r["metrics"]["total"]), "dryrun loss is not finite")
+        runs = {}
+        # cuDNN's default weight-gradient algorithms sum in a run-dependent order
+        # (two mesh-free steps differed in the prediction head's proj_out
+        # weights): the comparison runs both fits on deterministic algorithms
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        for tag, kw in (("mesh", {"mesh": mesh}), ("no mesh", {})):
+            times, losses = [], []
+
+            def log_step(msg, times=times, losses=losses):
+                times.append(time.perf_counter())
+                losses.append(msg.split("loss=")[1].split()[0])
+            data = batches(pairs, batch_size=1, n_seq=8, crop_len=128, seed=1)
+            torch.cuda.synchronize()
+            zero_counts()
+            t1 = time.perf_counter()
+            state = fit(train_config(), data, MESH_STEPS, seed=0, log_every=1,
+                        moment_dtype="bfloat16", log_fn=log_step, device="cuda", **kw)
+            torch.cuda.synchronize()
+            got = read_counts()
+            want = {n: KERNELS[n].per_train_step * MESH_STEPS for n in KERNELS}
+            require(got == want, f"{tag} fit launches {got} != {want}")
+            if tag == "mesh":
+                for n in KERNELS:
+                    counts[n] += got[n]
+            ms = [(b - a) * 1e3 for a, b in zip([t1] + times, times)]
+            runs[tag] = (losses, {n: p.detach().clone() for n, p in
+                                  state.model.named_parameters()})
+            log(f"mesh fit ({tag}) B=1 n_seq=8 crop=128: losses {' '.join(losses)}, ms/step"
+                f" {' '.join(f'{t:.1f}' for t in ms)} (the first holds the model's build)")
+            del state
+        (l_m, p_m), (l_n, p_n) = runs["mesh"], runs["no mesh"]
+        require(l_m == l_n, f"mesh fit losses {l_m} != {l_n}")
+        differ = [n for n in p_n if not torch.equal(p_m[n], p_n[n])]
+        require(not differ, f"mesh fit parameters differ from the mesh-free fit: {differ[:5]}")
+        log(f"mesh fit: losses and all {len(p_n)} parameters bit-equal to the mesh-free fit")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        dist.destroy_process_group()
+    log(f"mesh: {torch.cuda.device_count()} card(s) on this machine: a run on several cards"
+        " (dp or tp > 1 over NCCL) is unverified here")
+    log(f"phase 8: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def host_time_only():
     """`--host-time`: phases 1-2, then the C and D wrappers' host time a call
     (`_wrapper_host_times`) as one JSON line and no result line; run it from
@@ -1846,7 +2039,10 @@ def main() -> int:
             log(f"phases 1-4c: {time.perf_counter() - t0:.1f} s")
             phase_e2e(long_a3m)
             log(f"phases 1-6: {time.perf_counter() - t0:.1f} s")
-            training = phase_training(_train_pairs(tmp))
+            pairs = _train_pairs(tmp)
+            training = phase_training(pairs)
+            log(f"phases 1-7: {time.perf_counter() - t0:.1f} s")
+            mesh = phase_mesh(res, pairs)
         log(f"all phases: {time.perf_counter() - t0:.1f} s")
     except Exception:
         traceback.print_exc()
@@ -1854,9 +2050,11 @@ def main() -> int:
     kernels = [{"name": name, "route": "cuda",
                 "source": f"rosettafold_tpu_torch/csrc/{spec.source}",
                 "replaces": f"rosettafold_tpu/ops/pallas/{spec.replaces}",
-                "launches": serving[name] + long[name] + configs[name] + training[name],
+                "launches": serving[name] + long[name] + configs[name] + training[name]
+                + mesh[name],
                 "launches_serving": serving[name], "launches_long": long[name],
                 "launches_configs": configs[name], "launches_training": training[name],
+                "launches_mesh": mesh[name],
                 **res.kernels[name]}
                for name, spec in KERNELS.items()]
     missing = [k["name"] for k in kernels if k["launches"] == 0 or "ms" not in k]

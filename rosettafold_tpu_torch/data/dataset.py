@@ -85,18 +85,27 @@ def prefetch(it: Iterator[dict], size: int = 2) -> Iterator[dict]:
 
 def batches(pairs: Sequence[Tuple[str, str]], batch_size: int = 4, n_seq: int = 16,
             crop_len: int = 128, seed: int = 0, epochs: Optional[int] = None,
-            subsample: str = "uniform") -> Iterator[dict]:
+            subsample: str = "uniform", process_index: int = 0,
+            process_count: int = 1) -> Iterator[dict]:
     """Shuffled fixed-shape batches forever (or for `epochs` passes): msa
     (B, N, L) int32, seq (B, L), aa_idx (B, L), xyz (B, L, 3, 3) float32 and
-    mask (B, L). The per-epoch permutation draws from `seed`; crops and row
-    picks from a stream seeded with (seed, 0), JAX's stream of process 0
-    (one process: the multi-host shard is not ported)."""
-    shuffle_rng = np.random.default_rng(seed)
-    rng = np.random.default_rng((seed, 0))
+    mask (B, L).
+
+    Several hosts: pass process_index (the node's rank, torchrun's
+    GROUP_RANK), process_count (the node count) and the SAME seed on every
+    host. All hosts draw one shared per-epoch permutation from `seed` and
+    host i takes the strided slice order[i::process_count]; crops and row
+    picks draw from a stream seeded with (seed, process_index). batch_size
+    is the host's batch, which `parallel.mesh.shard_batch` splits over the
+    host's dp ranks. As JAX's, and process 0's stream is the one-host one."""
+    if not (0 <= process_index < process_count):
+        raise ValueError(f"process_index {process_index} outside [0, {process_count})")
+    shuffle_rng = np.random.default_rng(seed)  # shared: every host's epoch order agrees
+    rng = np.random.default_rng((seed, process_index))  # per host
     cache: List[Example] = [load_example(a, p) for a, p in pairs]
     epoch = 0
     while epochs is None or epoch < epochs:
-        order = shuffle_rng.permutation(len(cache))
+        order = shuffle_rng.permutation(len(cache))[process_index::process_count]
         buf: List[Example] = []
         for i in order:
             buf.append(crop_pad(cache[i], n_seq, crop_len, rng, subsample=subsample))

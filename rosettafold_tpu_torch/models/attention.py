@@ -10,11 +10,14 @@ from torch import nn
 
 from ..ops import performer as favor
 from ..ops.cuda import fused_performer as fp
+from ..parallel import mesh
 from .layers import FUSED_MIN_L, Dense, layer_norm
 
 
 class FeedForward(nn.Module):
-    """Linear -> ReLU -> Dropout -> Linear."""
+    """Linear -> ReLU -> Dropout -> Linear. Under a tp mesh fc1 is
+    column-parallel and fc2 row-parallel: each rank computes its block of
+    the hidden units, and one all-reduce sums fc2's partial products."""
 
     def __init__(self, d_emb: int, d_ff: int, p_dropout: float = 0.1, dtype=None):
         super().__init__()
@@ -23,6 +26,9 @@ class FeedForward(nn.Module):
         self.dropout = nn.Dropout(p_dropout)
 
     def forward(self, x):
+        if mesh.is_local(self.fc1.weight, self.fc2.weight):
+            h = torch.relu(self.fc1.local(mesh.copy_to_tp(x)))
+            return self.fc2.row_parallel(mesh.tp_dropout(self.dropout, h, -1))
         return self.fc2(self.dropout(torch.relu(self.fc1(x))))
 
 
@@ -45,7 +51,14 @@ class PerformerSelfAttention(nn.Module):
     `chunk_rows` (the long-L mode of JAX's `long_chunk`) runs the plain path
     over chunks of at most that many rows (axis -3, after the axis-1
     transpose), which bounds the (rows, h, L, m) feature maps; the kernel path
-    holds none and ignores it, as in JAX."""
+    holds none and ignores it, as in JAX.
+
+    Under a tp mesh (parallel/mesh.py) the plain path is Megatron's: each
+    rank attends with its heads (to_q/k/v column shards) and to_out's row
+    shard sums the heads with one all-reduce. The kernel path gathers the
+    whole-layer weights and splits the row problems over tp
+    (`tp_shard_map`), as JAX does; the axis-1 launch, which reads its
+    problems in place for every L, runs whole on each rank."""
 
     def __init__(self, dim: int, heads: int, dim_head: int = 64,
                  nb_features: Optional[int] = None,
@@ -75,7 +88,7 @@ class PerformerSelfAttention(nn.Module):
         self.dropout = nn.Dropout(p_dropout)
 
     def _split_heads(self, t):  # (..., L, h*dh) -> (..., h, L, dh)
-        t = t.reshape(*t.shape[:-1], self.heads, self.dim_head)
+        t = t.reshape(*t.shape[:-1], -1, self.dim_head)
         return t.movedim(-2, -3)
 
     def forward(self, x, ln_params=None):
@@ -98,20 +111,26 @@ class PerformerSelfAttention(nn.Module):
         """Kernel C: x + attn(LN(x)) with ln_params, attn(x) without."""
         cdt = self.dtype or x.dtype
         x = x.to(cdt).contiguous()
-        w = [lin.weight.t().to(cdt) for lin in (self.to_q, self.to_k, self.to_v, self.to_out)]
-        args = (*w, self.to_out.bias.to(cdt), self.projection, self.dim_head ** -0.25,
-                self.kernel_eps, self.heads, self.dim_head)
+        w = [mesh.full(lin.weight).t().to(cdt)
+             for lin in (self.to_q, self.to_k, self.to_v, self.to_out)]
+        w += [self.to_out.bias.to(cdt), self.projection]
+        statics = (self.dim_head ** -0.25, self.kernel_eps, self.heads, self.dim_head)
         if self.attend_axis == 1:
             if ln_params is None:
-                return fp.fused_performer_layer_axis1(x, *args)
+                return fp.fused_performer_layer_axis1(x, *w, *statics)
             g, b, eps = ln_params
-            return fp.fused_ln_performer_residual_axis1(x, g.float(), b.float(), *args, eps)
+            return fp.fused_ln_performer_residual_axis1(x, g.float(), b.float(), *w, *statics,
+                                                        eps)
         x3 = x.reshape(-1, *x.shape[-2:])
+        # under tp: the row problems split over the group, the weights replicated
         if ln_params is None:
-            out = fp.fused_performer_layer(x3, *args)
+            out = mesh.tp_shard_map(lambda x_, *w_: fp.fused_performer_layer(x_, *w_, *statics),
+                                    x3, *w, shard=(0,))
         else:
             g, b, eps = ln_params
-            out = fp.fused_ln_performer_residual(x3, g.float(), b.float(), *args, eps)
+            out = mesh.tp_shard_map(
+                lambda x_, *w_: fp.fused_ln_performer_residual(x_, *w_, *statics, eps),
+                x3, g.float(), b.float(), *w, shard=(0,))
         return out.reshape(x.shape)
 
     def _plain(self, x):
@@ -128,11 +147,15 @@ class PerformerSelfAttention(nn.Module):
         return out
 
     def _attend(self, x):
-        q = self._split_heads(self.to_q(x))
-        k = self._split_heads(self.to_k(x))
-        v = self._split_heads(self.to_v(x))
+        lins = (self.to_q, self.to_k, self.to_v, self.to_out)
+        local = (mesh.is_local(*(lin.weight for lin in lins))
+                 and self.heads % mesh.tp_size() == 0)
+        if local:  # this rank's heads
+            x = mesh.copy_to_tp(x)
+        q, k, v = (self._split_heads(lin.local(x) if local else lin(x)) for lin in lins[:3])
         out = favor.favor_attention(
             q, k, v, self.projection, generalized=self.generalized,
             kernel_eps=self.kernel_eps, softmax_eps=self.softmax_eps)
         out = out.movedim(-3, -2)
-        return self.to_out(out.reshape(*out.shape[:-2], -1))
+        out = out.reshape(*out.shape[:-2], -1)
+        return self.to_out.row_parallel(out) if local else self.to_out(out)

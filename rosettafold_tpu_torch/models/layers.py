@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import full, reduce_from_tp
+
 # L from which the JAX package engages the fused pair-track kernels (C, D, E,
 # F): the default of each module's crossover field
 FUSED_MIN_L = 128
@@ -27,19 +29,36 @@ def torch_dtype(name: Optional[str]):
 
 
 class Dense(nn.Linear):
-    """nn.Linear with flax Dense's compute-dtype rule (see module docstring)."""
+    """nn.Linear with flax Dense's compute-dtype rule (see module docstring).
+
+    Under a tensor-parallel mesh (parallel/mesh.py) its weight and bias may
+    be this rank's shards: `forward` gathers them (the unsharded layer),
+    `local` computes this rank's output units from its column shard, and
+    `row_parallel` multiplies this rank's input units by its row shard and
+    all-reduces the partial sums over tp before adding the bias once."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype=None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
 
-    def forward(self, x):
+    def _linear(self, x, w, b):
         if self.compute_dtype is not None:
             dt = self.compute_dtype
-            b = None if self.bias is None else self.bias.to(dt)
-            return F.linear(x.to(dt), self.weight.to(dt), b)
-        return F.linear(x.float(), self.weight, self.bias)
+            return F.linear(x.to(dt), w.to(dt), None if b is None else b.to(dt))
+        return F.linear(x.float(), w, b)
+
+    def forward(self, x):
+        return self._linear(x, full(self.weight), full(self.bias))
+
+    def local(self, x):
+        return self._linear(x, self.weight, self.bias)
+
+    def row_parallel(self, x):
+        y = reduce_from_tp(self._linear(x, self.weight, None).float())
+        if self.bias is not None:
+            y = y + self.bias.float()
+        return y if self.compute_dtype is None else y.to(self.compute_dtype)
 
 
 class LayerNorm(nn.Module):

@@ -8,13 +8,16 @@ import torch
 from torch import nn
 
 from ..ops.cuda.tied_attention import tied_flash_attention
+from ..parallel import mesh
 from .attention import FeedForward, PerformerSelfAttention
 from .layers import Dense, LayerNorm
 
 
 class PositionWiseWeightFactor(nn.Module):
     """Soft weight of each MSA row against the query, per position and head:
-    msa (B, N, L, d) -> (B, N, h, L, 1), softmax over N, dropout after it."""
+    msa (B, N, L, d) -> (B, N, h, L, 1), softmax over N, dropout after it.
+    local=True (under tp, from the tied attention): this rank's heads, from
+    the column shards of to_q and to_k."""
 
     def __init__(self, d_msa: int, n_heads: int = 12, p_dropout: float = 0.1, dtype=None):
         super().__init__()
@@ -27,23 +30,28 @@ class PositionWiseWeightFactor(nn.Module):
         self.to_k = Dense(d_msa, d_msa, dtype=dtype)
         self.dropout = nn.Dropout(p_dropout)
 
-    def forward(self, msa):
-        q = self.to_q(msa[:, 0])
-        k = self.to_k(msa)
+    def forward(self, msa, local: bool = False):
+        q = self.to_q.local(msa[:, 0]) if local else self.to_q(msa[:, 0])
+        k = self.to_k.local(msa) if local else self.to_k(msa)
         B, L = q.shape[:2]
-        q = q.reshape(B, L, self.n_heads, self.d_head) * self.d_head ** -0.5
-        k = k.reshape(B, k.shape[1], L, self.n_heads, self.d_head)
+        q = q.reshape(B, L, -1, self.d_head) * self.d_head ** -0.5
+        k = k.reshape(B, k.shape[1], L, -1, self.d_head)
         logits = torch.einsum("blhd,bnlhd->blhn", q.float(), k.float())
         att = torch.softmax(logits, dim=-1).to(q.dtype)
         att = att.permute(0, 3, 2, 1)[..., None]  # (B, N, h, L, 1)
-        return self.dropout(att)
+        return mesh.tp_dropout(self.dropout, att, 2) if local else self.dropout(att)
 
 
 class SoftTiedAttentionOverResidues(nn.Module):
     """Row-tied attention over residues: one L x L map shared by all N rows.
     With attn_impl="pallas" (and no map requested) the tied attention runs
     through kernel A (ops/cuda/tied_attention.py); otherwise plain PyTorch,
-    optionally returning the symmetrized per-head map (B, L, L, h)."""
+    optionally returning the symmetrized per-head map (B, L, L, h).
+
+    Under a tp mesh each rank attends with its h/tp heads (to_q/k/v and the
+    position-wise factor's to_q/to_k are column shards): kernel A and its
+    backward run on the B*h/tp folded problems of those heads, and to_out's
+    row shard sums the heads with one all-reduce."""
 
     def __init__(self, d_msa: int, n_heads: int = 12, p_dropout: float = 0.1,
                  return_att: bool = False, attn_impl: str = "xla", dtype=None):
@@ -59,12 +67,18 @@ class SoftTiedAttentionOverResidues(nn.Module):
         self.dropout = nn.Dropout(p_dropout)
 
     def forward(self, x):
-        h, dh = self.h, self.d_head
-        B, N, L, D = x.shape
-        q = self.to_q(x).reshape(B, N, L, h, dh)
-        k = self.to_k(x).reshape(B, N, L, h, dh)
-        v = self.to_v(x).reshape(B, N, L, h, dh)
-        w = self.poswise_weight(x)  # (B, N, h, L, 1)
+        pw = self.poswise_weight
+        local = mesh.is_local(self.to_q.weight, self.to_k.weight, self.to_v.weight,
+                              self.to_out.weight, pw.to_q.weight, pw.to_k.weight
+                              ) and self.h % mesh.tp_size() == 0
+        h, dh = self.h // mesh.tp_size() if local else self.h, self.d_head
+        B, N, L, _ = x.shape
+        D = h * dh
+        if local:
+            x = mesh.copy_to_tp(x)
+        q, k, v = ((lin.local(x) if local else lin(x)).reshape(B, N, L, h, dh)
+                   for lin in (self.to_q, self.to_k, self.to_v))
+        w = pw(x, local=local)  # (B, N, h, L, 1)
         q = q * w.permute(0, 1, 3, 2, 4) * dh ** -0.5
 
         if self.attn_impl == "pallas" and not self.return_att:
@@ -80,10 +94,10 @@ class SoftTiedAttentionOverResidues(nn.Module):
             out = torch.einsum("bhij,bnjhd->bnihd", att.to(v.dtype).float(), v.float())
             out = out.to(v.dtype).reshape(B, N, L, D)
 
-        out = self.dropout(self.to_out(out))
+        out = self.dropout(self.to_out.row_parallel(out) if local else self.to_out(out))
         if self.return_att:
-            att_sym = 0.5 * (att + att.transpose(-1, -2))
-            return out, att_sym.permute(0, 2, 3, 1)  # (B, i, j, h)
+            att_sym = (0.5 * (att + att.transpose(-1, -2))).permute(0, 2, 3, 1)  # (B, i, j, h)
+            return out, mesh.gather_tp(att_sym, -1) if local else att_sym
         return out
 
 

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.cuda.fused_ff import fused_ln_ff_residual
 from ..ops.cuda.outer_product import fused_outer_product_mean
+from ..parallel import mesh
 from .attention import FeedForward, PerformerSelfAttention
 from .layers import FUSED_MIN_L, ConvNHWC, Dense, LayerNorm
 from .msa import PositionWiseWeightFactor
@@ -54,7 +55,7 @@ class OuterProductMean(nn.Module):
             # kernel E: the (B, L, L, u*u) outer product never materializes
             return fused_outer_product_mean(
                 x.float(), y, self.ln.weight, self.ln.bias,
-                self.to_out.weight.t().to(x.dtype), self.to_out.bias.float(), LN_EPS,
+                mesh.full(self.to_out.weight).t().to(x.dtype), self.to_out.bias.float(), LN_EPS,
                 self.dtype or torch.float32)
 
         def block(x_rows):
@@ -185,8 +186,8 @@ class PairUpdateWithAxialAttentionLayer(nn.Module):
             ff = self.ff
             return fused_ln_ff_residual(
                 x.contiguous(), self.ln_ff.weight.float(), self.ln_ff.bias.float(),
-                ff.fc1.weight.t().to(cdt), ff.fc1.bias.float(),
-                ff.fc2.weight.t().to(cdt), ff.fc2.bias.float(), LN_EPS)
+                mesh.full(ff.fc1.weight).t().to(cdt), mesh.full(ff.fc1.bias).float(),
+                mesh.full(ff.fc2.weight).t().to(cdt), ff.fc2.bias.float(), LN_EPS)
         ranges = chunks(x.shape[1], self.ff_chunk)
         if len(ranges) > 1 and not self.training:  # pointwise: exact, no halo
             out = torch.empty_like(x)

@@ -26,7 +26,9 @@ K_max. Unscanned, each block takes its own n_neighbors[i]; the final block
 head's), as JAX passes it on as `conv_chunk`; `cfg.long_chunk` row-chunks
 each block's plain outer product and axial attention. With
 `cfg.use_template` the model takes a template (B, L, L, d_template) as its
-fourth input.
+fourth input. `cfg.shard_pair` passes the pair stream through
+`parallel.mesh.shard_pair_constraint` where JAX does: the identity without
+sequence parallelism, which is not ported.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.mesh import shard_pair_constraint
 from .embeddings import MsaEmbedding, PairEmbedding
 from .heads import PredictionHead
 from .layers import ConvNHWC, Dense, torch_dtype
@@ -168,12 +171,16 @@ class RoseTTAFold(nn.Module):
         seq_onehot = F.one_hot(seq.long(), cfg.d_input).to(x.dtype)
         if self.dtype is not None:
             pair = pair.to(self.dtype)  # bf16 pair stream between blocks
+        shard_pair = shard_pair_constraint if cfg.shard_pair else (lambda p: p)
+        pair = shard_pair(pair)
         for i in range(cfg.n_two_track_blocks):
             x, pair = self._run(getattr(self, f"two_track_{i}"), x, pair)
+            pair = shard_pair(pair)
         xyz = self._run(self.initial_coords, x, pair, seq_onehot, aa_idx)
         for i in range(self.n_tt):
             x, pair, xyz = self._run(getattr(self, f"three_track_{i}"), x, pair, xyz, seq_onehot,
                                      aa_idx)
+            pair = shard_pair(pair)
         x, pair, xyz, plddt = self._run(self.final_block, x, pair, xyz, seq_onehot, aa_idx)
         logits = self._run(self.prediction_head, pair)
         return ({k: v.float() for k, v in logits.items()}, xyz.float(), plddt.float())

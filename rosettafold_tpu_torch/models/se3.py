@@ -27,6 +27,7 @@ from torch import nn
 
 from ..ops import so3
 from ..ops.cuda import se3_attend
+from ..parallel import mesh
 from .layers import Dense, LayerNorm
 
 Features = Dict[int, torch.Tensor]
@@ -310,7 +311,8 @@ class GSE3Res(nn.Module):
             z = self.attn(self.v(h, edge_feat, basis, src_major=True),
                           self.k(h, edge_feat, basis, src_major=True), q, mask, dst_idx)
         elif self.fused:
-            stacked = se3_attend.stack_weights(self.v, self.k, self.meta)
+            # under tp: fc1's and fc2's gathered shards (the kernel takes whole weights)
+            stacked = se3_attend.stack_weights(self.v, self.k, self.meta, whole=mesh.full)
             qh = fiber2head(q, self.n_heads, self.f_mid_in)
             qh = qh.reshape(*qh.shape[:2], -1).contiguous()
             z = se3_attend.gse3_attend(

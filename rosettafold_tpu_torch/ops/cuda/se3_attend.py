@@ -80,18 +80,20 @@ def build_meta(f_in_dict: Dict[int, int], f_value_dict: Dict[int, int],
                 f_key=tuple(sorted(f_key_dict.items())), n_heads=n_heads)
 
 
-def stack_weights(v_mod, k_mod, meta: Meta):
+def stack_weights(v_mod, k_mod, meta: Meta, whole=lambda p: p):
     """Stack the per-pair RadialFunc params of the v/k GConvSE3Partial modules
     (`pc_{di}_{do}.rp.{fc1,ln1,fc2,ln2,fc3}`) into the kernel's operands, in
     the JAX function's layout: w1t (32P, ed), misc (32P, 6), w2t (32P, 32),
     w3t (NW3, 32), w3b (NW3, 1). fc3 rows are permuted from the (o, c, f)
-    flattening to (o, f, c) and padded with zero rows to multiples of 8."""
+    flattening to (o, f, c) and padded with zero rows to multiples of 8.
+    `whole` maps fc1's and fc2's parameters to the whole tensors (the
+    caller's gather of tensor-parallel shards)."""
     w1, w2, m6, w3, b3 = [], [], [], [], []
     for p in meta.pairs:
         rp = getattr(v_mod if p.branch == "v" else k_mod, f"pc_{p.di}_{p.do}").rp
-        w1.append(rp.fc1.weight)
-        w2.append(rp.fc2.weight)
-        m6.append(torch.stack([rp.fc1.bias, rp.ln1.weight, rp.ln1.bias,
+        w1.append(whole(rp.fc1.weight))
+        w2.append(whole(rp.fc2.weight))
+        m6.append(torch.stack([whole(rp.fc1.bias), rp.ln1.weight, rp.ln1.bias,
                                rp.fc2.bias, rp.ln2.weight, rp.ln2.bias], dim=-1))
         # row r = o*nf*mi + f*mi + c  <-  original row (o*mi + c)*nf + f; built
         # on the weights' device (a host-made index would cost a copy + sync)

@@ -4,6 +4,13 @@ A checkpoint is a directory holding `state.pt`, the `torch.save` of the
 model's state_dict, the optimizer's state_dict and the step. An async save
 copies the tensors to the host first and writes on a background thread;
 `restore` and the next `save` join it.
+
+Under a mesh (parallel/mesh.py) the file holds the whole state, as orbax's
+global arrays do in JAX: `save` gathers each tp-sharded leaf and its Adam
+moments on every rank, rank 0 writes, and a sync save ends at a barrier;
+`restore` keeps this rank's blocks of the whole leaves. So a checkpoint
+resumes at any dp and tp (its directory must be one that every rank reads)
+and loads into `predict`'s model as it is.
 """
 
 from __future__ import annotations
@@ -13,6 +20,8 @@ import threading
 from typing import Optional
 
 import torch
+
+from ..parallel import mesh as pmesh
 
 _pending: Optional[threading.Thread] = None
 _error: Optional[BaseException] = None
@@ -47,17 +56,46 @@ def _write(path: str, payload) -> None:
     os.replace(tmp, os.path.join(path, "state.pt"))  # a reader never sees half a file
 
 
+def _layout(state):
+    """{state_dict key: tp dim} of the model's leaves and {optimizer state
+    index: tp dim} of their moments (None: replicated)."""
+    named = dict(state.model.named_parameters())
+    model = {k: pmesh.tp_dim(named[k]) if k in named else None
+             for k in state.model.state_dict()}
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    return model, {i: pmesh.tp_dim(p) for i, p in enumerate(params)}
+
+
+def _apply(fn, state_dicts, layout):
+    """fn(tensor, dim) over the model's and the optimizer's leaves."""
+    model_sd, opt_sd = state_dicts
+    model_dims, opt_dims = layout
+    model_sd = {k: fn(v, model_dims.get(k)) for k, v in model_sd.items()}
+    opt_sd = dict(opt_sd)
+    opt_sd["state"] = {i: {k: fn(v, opt_dims[i]) if isinstance(v, torch.Tensor) and v.dim()
+                           else v for k, v in st.items()}
+                       for i, st in opt_sd["state"].items()}
+    return model_sd, opt_sd
+
+
 def save(path: str, state, *, async_: bool = False) -> None:
     """Save `state` (train.step.TrainState) into the directory `path`.
     async_=True returns once the tensors are on the host; the file is written
-    on a background thread."""
+    on a background thread. Under a mesh every rank calls it (the sharded
+    leaves are gathered) and rank 0 writes."""
     global _pending
     wait_until_finished()  # saves to one path never overlap
-    payload = _to_host({"model": state.model.state_dict(),
-                        "optimizer": state.optimizer.state_dict(), "step": state.step})
+    model_sd, opt_sd = _apply(pmesh.unshard, (state.model.state_dict(),
+                                              state.optimizer.state_dict()), _layout(state))
+    if pmesh.rank() != 0:
+        if not async_:
+            pmesh.barrier()
+        return
+    payload = _to_host({"model": model_sd, "optimizer": opt_sd, "step": state.step})
     path = os.path.abspath(path)
     if not async_:
         _write(path, payload)
+        pmesh.barrier()
         return
 
     def run():
@@ -73,12 +111,14 @@ def save(path: str, state, *, async_: bool = False) -> None:
 
 def restore(path: str, target):
     """Load the checkpoint in `path` into `target` (a TrainState of the same
-    configuration) and return it."""
+    configuration, under the current mesh: this rank's blocks) and return it."""
     wait_until_finished()
     dev = next(target.model.parameters()).device
     payload = torch.load(os.path.join(os.path.abspath(path), "state.pt"), map_location=dev,
                          weights_only=True)
-    target.model.load_state_dict(payload["model"])
-    target.optimizer.load_state_dict(payload["optimizer"])
+    model_sd, opt_sd = _apply(pmesh.reshard, (payload["model"], payload["optimizer"]),
+                              _layout(target))
+    target.model.load_state_dict(model_sd)
+    target.optimizer.load_state_dict(opt_sd)
     target.step = int(payload["step"])
     return target

@@ -1,5 +1,13 @@
 """Training losses: 6D-geometry cross-entropy, dRMSD and plDDT terms (port of
-rosettafold_tpu/train/losses.py)."""
+rosettafold_tpu/train/losses.py).
+
+Each masked mean's denominator is summed over the dp ranks of the current
+mesh (parallel/mesh.py; the identity on one device), and a plain mean over
+examples divides by dp as well (every dp rank holds as many), so a rank's
+terms are its share of the global batch's loss: their sum over dp is JAX's
+loss over the whole batch, and so are the gradients' sums, also where the
+residue masks differ between ranks.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +15,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from ..parallel.mesh import dp_size, dp_sum
 from . import geometry
 
 DEFAULT_WEIGHTS = {"dist": 1.0, "omega": 0.5, "theta": 0.5, "phi": 0.5, "xyz": 1.0,
@@ -17,7 +26,7 @@ def binned_cross_entropy(logits, labels, mask):
     """Masked mean CE: logits (B, L, L, bins), labels int (B, L, L), mask bool."""
     logp = torch.log_softmax(logits, dim=-1)
     ll = torch.gather(logp, -1, labels[..., None].long())[..., 0]
-    denom = torch.clamp(mask.sum(), min=1)
+    denom = torch.clamp(dp_sum(mask.sum()), min=1)
     return -torch.where(mask, ll, torch.zeros_like(ll)).sum() / denom
 
 
@@ -28,9 +37,9 @@ def plddt_loss(plddt_logits, pred_xyz, true_xyz, residue_mask=None):
         target = geometry.lddt_ca(pred_xyz, true_xyz, residue_mask=residue_mask)
     err = (torch.sigmoid(plddt_logits) - target) ** 2
     if residue_mask is None:
-        return err.mean()
+        return err.mean() / dp_size()
     m = residue_mask.to(err.dtype)
-    return (err * m).sum() / torch.clamp(m.sum(), min=1)
+    return (err * m).sum() / torch.clamp(dp_sum(m.sum()), min=1)
 
 
 def rosettafold_loss(outputs, true_xyz, residue_mask=None,
@@ -51,7 +60,8 @@ def rosettafold_loss(outputs, true_xyz, residue_mask=None,
         ce = binned_cross_entropy(logits[head], labels[head], mask)
         metrics[f"ce_{head}"] = ce
         total = total + w[head] * ce
-    xyz_term = geometry.drmsd(pred_xyz, true_xyz, residue_mask=residue_mask).mean()
+    drmsd = geometry.drmsd(pred_xyz, true_xyz, residue_mask=residue_mask)
+    xyz_term = drmsd.mean() / dp_size()
     metrics["drmsd"] = xyz_term
     total = total + w["xyz"] * xyz_term
     pl = plddt_loss(plddt, pred_xyz, true_xyz, residue_mask=residue_mask)

@@ -10,6 +10,13 @@ Dropout: nn.Dropout draws from the default generators. Each step forks them
 and seeds them from (seed, step), the counterpart of JAX's
 fold_in(rng, step); `torch.utils.checkpoint` saves and restores the same
 generators, so a remat'd block's recomputation draws the forward's masks.
+
+Under a mesh (parallel/mesh.py, made current by `use_mesh`): the seed also
+folds in the rank's dp coordinate (its examples draw their own masks; the
+ranks of a tp group draw the same, so the replicated activations agree);
+the gradients are reduced to the global batch's (`mesh.reduce_gradients`);
+the metrics are summed over dp; the clip reads the norm of the whole
+gradient, a tp-sharded leaf's squares summed over its group.
 """
 
 from __future__ import annotations
@@ -21,12 +28,24 @@ import numpy as np
 import torch
 
 from ..models.rosettafold import RoseTTAFold
+from ..parallel import mesh as pmesh
 from .losses import rosettafold_loss
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """The norm of all tensors together (optax.global_norm)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm([t.float() for t in tensors])))
+def global_norm(tensors, params=None) -> torch.Tensor:
+    """optax.global_norm of the whole gradient whose local parts are
+    `tensors` (of `params`, where given): sqrt of the replicated leaves'
+    squares plus the tp-sharded leaves' squares summed over their group.
+    Without a tp mesh no leaf is sharded and the sum over tp is the identity."""
+    def squares(ts):
+        if not ts:
+            return torch.zeros((), device=tensors[0].device)
+        return torch.stack(torch._foreach_norm([t.float() for t in ts])).square().sum()
+
+    params = params or [None] * len(tensors)
+    sharded = [t for p, t in zip(params, tensors) if pmesh.tp_dim(p) is not None]
+    replicated = [t for p, t in zip(params, tensors) if pmesh.tp_dim(p) is None]
+    return torch.sqrt(squares(replicated) + pmesh.tp_sum(squares(sharded)))
 
 
 class OptaxAdamW(torch.optim.Optimizer):
@@ -70,7 +89,7 @@ class OptaxAdamW(torch.optim.Optimizer):
             grad_norm = None  # the clip reads the mean's norm
         else:
             grads = [p.grad.float() for p in params]
-        norm = global_norm(grads) if grad_norm is None else grad_norm
+        norm = global_norm(grads, params) if grad_norm is None else grad_norm
         # optax: below max_norm the update as it is, else (g / norm) * max_norm;
         # selected on the device, so the step waits for no host read
         keep = norm < self.grad_clip
@@ -134,13 +153,18 @@ class TrainState:
 def create_train_state(config, seed: int = 0, learning_rate: float = 1e-3,
                        weight_decay: float = 1e-4, grad_clip: float = 1.0,
                        accum_steps: int = 1, moment_dtype: str = "float32",
-                       device="cuda") -> TrainState:
+                       device="cuda", mesh=None) -> TrainState:
     """A model with random weights from `seed` (models.rosettafold.init_like_flax),
     in training mode on `device`, and its optimizer. accum_steps > 1 applies
     the mean gradient of that many calls per update; moment_dtype="bfloat16"
-    keeps Adam's first moment in bfloat16."""
+    keeps Adam's first moment in bfloat16. With a tp `mesh` the model keeps
+    this rank's shards of the leaves the tp rules match (every rank draws the
+    same full model from `seed` first), and the optimizer, made after, holds
+    moments of the local shapes, as JAX's moments mirror its layout."""
     model = RoseTTAFold(config, device=device, seed=seed)
     model.train()
+    if mesh is not None:
+        pmesh.shard_params(model, mesh)
     mu_dtype = torch.bfloat16 if moment_dtype == "bfloat16" else torch.float32
     opt = OptaxAdamW(model.parameters(), lr=learning_rate, weight_decay=weight_decay,
                      grad_clip=grad_clip, accum_steps=accum_steps, mu_dtype=mu_dtype)
@@ -152,9 +176,11 @@ def to_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The dropout seed of one step: a function of (seed, step) only."""
-    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+def step_seed(seed: int, step: int, dp_rank: int = 0) -> int:
+    """The dropout seed of one step: a function of (seed, step) and, from
+    dp coordinate 1 on, the rank's dp coordinate."""
+    key = [seed, step] + ([dp_rank] if dp_rank else [])
+    return int(np.random.SeedSequence(key).generate_state(1)[0])
 
 
 def _forward_loss(model, batch):
@@ -164,21 +190,26 @@ def _forward_loss(model, batch):
 
 def make_train_step(config):
     """train_step(state, batch, seed) -> (state, metrics): one optimizer call
-    on a batch of tensors (to_device). metrics: the loss terms, "total" and
-    "grad_norm" (the global norm of this batch's gradients), as tensors."""
+    on a batch of tensors (to_device; under a mesh this rank's rows,
+    `mesh.shard_batch`). metrics: the loss terms, "total" and "grad_norm"
+    (the global norm of this batch's gradients), as tensors, of the global
+    batch."""
 
     def train_step(state: TrainState, batch, seed: int) -> Tuple[TrainState, Dict]:
         model, opt = state.model, state.optimizer
         model.train()
         dev = next(model.parameters()).device
+        m = pmesh.current()
         with torch.random.fork_rng(devices=[dev] if dev.type == "cuda" else []):
-            torch.manual_seed(step_seed(seed, state.step))
+            torch.manual_seed(step_seed(seed, state.step, m.dp_rank if m else 0))
             opt.zero_grad(set_to_none=True)
             loss, metrics = _forward_loss(model, batch)
             loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        params = [p for p in model.parameters() if p.grad is not None]
+        pmesh.reduce_gradients(params)
+        grads = [p.grad for p in params]
+        metrics = {k: pmesh.dp_sum(v.detach()) for k, v in metrics.items()}
+        metrics["grad_norm"] = global_norm(grads, params)
         opt.step(grad_norm=metrics["grad_norm"])
         state.step += 1
         return state, metrics
@@ -194,7 +225,8 @@ def make_eval_step(config):
         was = model.training
         model.eval()
         try:
-            return {k: v.detach() for k, v in _forward_loss(model, batch)[1].items()}
+            return {k: pmesh.dp_sum(v.detach())
+                    for k, v in _forward_loss(model, batch)[1].items()}
         finally:
             model.train(was)
 

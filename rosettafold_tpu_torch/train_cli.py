@@ -6,8 +6,17 @@ Usage:
         [--ckpt-dir ck] [--batch-size 4] [--n-seq 16] [--crop 128] \
         [--preset tiny|full] [--device cuda|cpu]
 
-DIR holds matching stems: <name>.a3m + <name>.pdb. --n-devices / --sp above 1
-(the mesh) are not ported and raise.
+Several GPUs (data parallel over G cards; --batch-size is each node's batch,
+split over its ranks):
+    torchrun --nproc-per-node G -m rosettafold_tpu_torch.train_cli \
+        --n-devices G --data-dir DIR ...
+
+DIR holds matching stems: <name>.a3m + <name>.pdb. Under torchrun the process
+group comes from its environment (NCCL with --device cuda, gloo with --device
+cpu) and each process takes cuda:LOCAL_RANK; every node reads its own share
+of the pairs (process_index = the node's rank). Tensor parallelism is
+`train.loop.fit(tp=...)`, as in JAX, whose CLI has no flag for it; --sp above
+1 raises (sequence parallelism is not ported).
 """
 
 from __future__ import annotations
@@ -15,6 +24,8 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+
+import torch
 
 from .config import PerformerConfig, RoseTTAFoldConfig
 from .data.dataset import batches, prefetch
@@ -47,6 +58,25 @@ def preset_config(name: str, crop: int) -> RoseTTAFoldConfig:
                              scan_blocks=True)
 
 
+def init_distributed(device: str):
+    """Under torchrun (WORLD_SIZE in the environment): the process group from
+    its environment, NCCL for cuda and gloo for cpu, and cuda:LOCAL_RANK as
+    this process's device. Returns (node rank, node count, whether it made
+    the process group)."""
+    if "WORLD_SIZE" not in os.environ:
+        return 0, 1, False
+    import torch.distributed as dist
+
+    if device == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+    made = not dist.is_initialized()
+    if made:
+        dist.init_process_group("nccl" if device == "cuda" else "gloo")
+    world = int(os.environ["WORLD_SIZE"])
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    return int(os.environ.get("GROUP_RANK", 0)), world // local, made
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description="rosettafold_tpu_torch training")
     p.add_argument("--data-dir", required=True)
@@ -68,15 +98,19 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="cuda (the kernels) or cpu")
     args = p.parse_args(argv)
 
+    node, nodes, made_group = init_distributed(args.device)
     pairs = find_pairs(args.data_dir)
-    print(f"{len(pairs)} training pairs from {args.data_dir}")
+    if int(os.environ.get("RANK", 0)) == 0:
+        print(f"{len(pairs)} training pairs from {args.data_dir}")
     cfg = preset_config(args.preset, args.crop)
     data = batches(pairs, batch_size=args.batch_size, n_seq=args.n_seq, crop_len=args.crop,
-                   subsample=args.subsample)
+                   subsample=args.subsample, process_index=node, process_count=nodes)
     if args.prefetch:
         data = prefetch(data, size=args.prefetch)
     fit(cfg, data, steps=args.steps, learning_rate=args.lr, ckpt_dir=args.ckpt_dir,
         log_every=args.log_every, n_devices=args.n_devices, sp=args.sp, device=args.device)
+    if made_group:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

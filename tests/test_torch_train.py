@@ -263,10 +263,75 @@ def test_train_cli_tiny_cpu(pairs, tmp_path, capsys):
     assert "resumed from step 2" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("mesh", [dict(n_devices=2), dict(sp=2), dict(tp=2)])
-def test_fit_refuses_mesh(mesh):
-    with pytest.raises(NotImplementedError):
+@pytest.mark.parametrize("mesh,error", [(dict(n_devices=2), RuntimeError),
+                                        (dict(sp=2), NotImplementedError),
+                                        (dict(tp=2), ValueError)],
+                         ids=["mesh0", "mesh1", "mesh2"])
+def test_fit_refuses_mesh(mesh, error):
+    """fit never trains on one device where a mesh was asked for: n_devices
+    > 1 needs an initialized process group (torchrun), sp > 1 is not ported
+    (ROADMAP queue 1, item 6b), tp > 1 needs n_devices. The mesh itself is
+    held in tests/test_torch_mesh.py."""
+    with pytest.raises(error, match="torchrun|6b|n_devices"):
         fit(tiny_config(), iter([]), 1, device="cpu", **mesh)
+
+
+def test_fit_refuses_to_train_alone_in_a_world(monkeypatch):
+    """A process group of several ranks without n_devices raises (each rank
+    would train its own model); the real world is in tests/test_torch_mesh.py."""
+    from rosettafold_tpu_torch.parallel import mesh as pmesh
+
+    monkeypatch.setattr(pmesh, "world_size", lambda: 2)
+    with pytest.raises(ValueError, match="n_devices=2"):
+        fit(tiny_config(), iter([]), 1, device="cpu")
+
+
+def test_dropout_rate_matches_jax():
+    """The port's nn.Dropout against JAX's Dropout (models/dropout.py) in the
+    positional encoding's training step, p = 0.1 on 131072 elements: their
+    RNG streams differ, so the masks are held by statistics. In each package
+    the zeroed share lies within 5 sigma of p (sigma the binomial's,
+    sqrt(p (1 - p) / n)) and the two shares within 5 sigma of each other;
+    a kept value is JAX's x / (1 - p) and PyTorch's x * (1 / (1 - p)) (its
+    scale rounded to float32 first) exactly, within one ulp of each other;
+    eval mode / deterministic=True is the identity. JAX's recompute-VJP
+    Dropout stays unported: the port's masks are PyTorch's, saved for the
+    backward (ROADMAP)."""
+    from rosettafold_tpu.models.embeddings import SinusoidalPositionalEncoding as JaxPE
+    from rosettafold_tpu_torch.models.embeddings import SinusoidalPositionalEncoding as PE
+
+    p, dim, max_len = 0.1, 64, 128
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(1, 32, 64, dim)).astype(np.float32)
+    aa = np.arange(64, dtype=np.int32)[None]
+    jmod = JaxPE(dim, max_len, p)
+    j_eval = np.asarray(jmod.apply({}, x, aa, deterministic=True))
+    j_train = np.asarray(jmod.apply({}, x, aa, deterministic=False,
+                                    rngs={"dropout": jax.random.PRNGKey(3)}))
+    tmod = PE(dim, max_len, p)
+    tmod.eval()
+    t_eval = tmod(T(x), T(aa)).numpy()
+    tmod.train()
+    torch.manual_seed(3)
+    t_train = tmod(T(x), T(aa)).numpy()
+    np.testing.assert_allclose(t_eval, j_eval, atol=1e-6, rtol=0)
+    assert (j_eval != 0).all() and (t_eval != 0).all()
+    n = x.size
+    sigma = np.sqrt(p * (1 - p) / n)
+    shares = {}
+    for name, train, ref, kept in (
+            ("jax", j_train, j_eval, lambda r: r / np.float32(1 - p)),
+            ("port", t_train, t_eval, lambda r: r * np.float32(1 / (1 - p)))):
+        zero = train == 0
+        shares[name] = zero.mean()
+        assert abs(shares[name] - p) <= 5 * sigma, (name, shares[name])
+        np.testing.assert_array_equal(train[~zero], kept(ref[~zero]), err_msg=name)
+        np.testing.assert_array_max_ulp(train[~zero], ref[~zero] / np.float32(1 - p), maxulp=1)
+    assert abs(shares["jax"] - shares["port"]) <= 5 * sigma, shares
+    with torch.no_grad():
+        tmod.eval()
+        np.testing.assert_array_equal(tmod(T(x), T(aa)).numpy(), t_eval)
+    np.testing.assert_array_equal(t_eval, (T(x) + tmod.table[:64][None, None]).numpy())
 
 
 def test_model_gradients_match_jax():
