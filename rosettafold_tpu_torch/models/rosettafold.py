@@ -34,6 +34,7 @@ sequence parallelism, which is not ported.
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 import torch.nn.functional as F
@@ -41,12 +42,16 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.mesh import shard_pair_constraint
+from ..tracing import span
 from .embeddings import MsaEmbedding, PairEmbedding
 from .heads import PredictionHead
 from .layers import ConvNHWC, Dense, torch_dtype
 from .msa import MsaUpdateUsingSelfAttention, MsaUpdateWithPair, MsaUpdateWithPairAndCoord
 from .pair import PairUpdateWithAxialAttention, PairUpdateWithMsa
 from .structure import CoordUpdateWithMsaAndPair, InitialCoordGenerationWithMsaAndPair
+
+builds = 0  # RoseTTAFold constructions made by this process
+build_s = 0.0  # their host seconds
 
 
 class TwoTrackBlock(nn.Module):
@@ -83,7 +88,10 @@ class TwoTrackBlock(nn.Module):
 
 class ThreeTrackBlock(nn.Module):
     """Two-track ops + SE(3) coordinate update (+ structure -> MSA feedback,
-    unless `final`, which adds the plDDT head instead)."""
+    unless `final`, which adds the plDDT head instead). Each of the three is a
+    profiler span under `span_name`, which RoseTTAFold sets to the block's path."""
+
+    span_name = "rf.three_track"
 
     def __init__(self, cfg, n_neighbors: int, feature_seed: int, dtype=None,
                  final: bool = False, k_dynamic=None):
@@ -108,20 +116,29 @@ class ThreeTrackBlock(nn.Module):
                 cfg.p_dropout, dtype=dtype)
 
     def forward(self, msa, pair, xyz, seq_onehot, aa_idx):
-        msa, pair = self.two_track(msa, pair)
-        state, xyz = self.coord_update_with_msa_and_pair(xyz, msa, pair, aa_idx, seq_onehot)
+        name = self.span_name
+        with span(name + ".two_track"):
+            msa, pair = self.two_track(msa, pair)
+        with span(name + ".coord_update_with_msa_and_pair"):
+            state, xyz = self.coord_update_with_msa_and_pair(xyz, msa, pair, aa_idx, seq_onehot)
         if self.final:
-            return msa, pair, xyz, self.plddt_head(state)[..., 0]
-        msa = self.msa_update_with_pair_and_coord(xyz, state, msa)
+            with span(name + ".plddt_head"):
+                return msa, pair, xyz, self.plddt_head(state)[..., 0]
+        with span(name + ".msa_update_with_pair_and_coord"):
+            msa = self.msa_update_with_pair_and_coord(xyz, state, msa)
         return msa, pair, xyz
 
 
 class RoseTTAFold(nn.Module):
     """Top-level three-track model. Build with a RoseTTAFoldConfig; `device`
     places parameters and buffers; `seed` draws a random init in the spirit of
-    flax's defaults (see `init_like_flax`). Built in eval mode."""
+    flax's defaults (see `init_like_flax`). Built in eval mode. The forward's
+    stages are profiler spans (`tracing`): `rf.embed`, then `rf.` + each
+    stage's path in `named_modules()`. Each construction adds to the module's
+    `builds` and `build_s`."""
 
     def __init__(self, config, device=None, seed: int = 0, init: bool = True):
+        t0 = time.perf_counter()
         super().__init__()
         cfg = self.config = config
         dtype = torch_dtype(cfg.compute_dtype)
@@ -152,37 +169,46 @@ class RoseTTAFold(nn.Module):
         self.final_block = ThreeTrackBlock(cfg, 32, 42 + 9000, dtype=dtype, final=True)
         self.prediction_head = PredictionHead(cfg.d_pair, 4, cfg.p_dropout, dtype=dtype,
                                               conv_impl=cfg.attn_impl, row_chunk=cfg.head_chunk)
+        for name, mod in self.named_modules():
+            if isinstance(mod, (ThreeTrackBlock, CoordUpdateWithMsaAndPair)):
+                mod.span_name = "rf." + name
         if init:
             init_like_flax(self, torch.Generator().manual_seed(seed))
         self.eval()
         if device is not None:
             self.to(device)
+        global builds, build_s
+        builds += 1
+        build_s += time.perf_counter() - t0
 
-    def _run(self, module, *args):
-        """module(*args), rematerialized in the backward under cfg.remat."""
-        if self.config.remat and torch.is_grad_enabled():
-            return checkpoint(module, *args, use_reentrant=False)
-        return module(*args)
+    def _run(self, name: str, *args):
+        """The stage `name`(*args) in its span, rematerialized in the backward
+        under cfg.remat."""
+        module = getattr(self, name)
+        with span("rf." + name):
+            if self.config.remat and torch.is_grad_enabled():
+                return checkpoint(module, *args, use_reentrant=False)
+            return module(*args)
 
     def forward(self, msa, seq, aa_idx, template=None):
         cfg = self.config
-        x = self.msa_emb(msa, aa_idx)
-        pair = self.pair_emb(seq, aa_idx, template)
-        seq_onehot = F.one_hot(seq.long(), cfg.d_input).to(x.dtype)
-        if self.dtype is not None:
-            pair = pair.to(self.dtype)  # bf16 pair stream between blocks
         shard_pair = shard_pair_constraint if cfg.shard_pair else (lambda p: p)
-        pair = shard_pair(pair)
+        with span("rf.embed"):
+            x = self.msa_emb(msa, aa_idx)
+            pair = self.pair_emb(seq, aa_idx, template)
+            seq_onehot = F.one_hot(seq.long(), cfg.d_input).to(x.dtype)
+            if self.dtype is not None:
+                pair = pair.to(self.dtype)  # bf16 pair stream between blocks
+            pair = shard_pair(pair)
         for i in range(cfg.n_two_track_blocks):
-            x, pair = self._run(getattr(self, f"two_track_{i}"), x, pair)
+            x, pair = self._run(f"two_track_{i}", x, pair)
             pair = shard_pair(pair)
-        xyz = self._run(self.initial_coords, x, pair, seq_onehot, aa_idx)
+        xyz = self._run("initial_coords", x, pair, seq_onehot, aa_idx)
         for i in range(self.n_tt):
-            x, pair, xyz = self._run(getattr(self, f"three_track_{i}"), x, pair, xyz, seq_onehot,
-                                     aa_idx)
+            x, pair, xyz = self._run(f"three_track_{i}", x, pair, xyz, seq_onehot, aa_idx)
             pair = shard_pair(pair)
-        x, pair, xyz, plddt = self._run(self.final_block, x, pair, xyz, seq_onehot, aa_idx)
-        logits = self._run(self.prediction_head, pair)
+        x, pair, xyz, plddt = self._run("final_block", x, pair, xyz, seq_onehot, aa_idx)
+        logits = self._run("prediction_head", pair)
         return ({k: v.float() for k, v in logits.items()}, xyz.float(), plddt.float())
 
 

@@ -9,6 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import knn
+from ..tracing import span
 from .layers import Dense, LayerNorm
 from .msa import PositionWiseWeightFactor
 from .se3 import SE3Transformer
@@ -121,7 +122,11 @@ class CoordUpdateWithMsaAndPair(nn.Module):
     hold O(L*S) edge tensors. With k_dynamic the
     top-k is taken at n_neighbors and cut to its first k_dynamic slots (the
     scanned blocks' form). A bucket forward keeps its overflow (B,) int32 in
-    `bucket_overflow` (JAX sows it as diagnostics/se3_bucket_overflow)."""
+    `bucket_overflow` (JAX sows it as diagnostics/se3_bucket_overflow). The
+    SE(3) transformer runs in the profiler span `span_name + ".se3"`;
+    RoseTTAFold sets `span_name` to the module's path."""
+
+    span_name = "rf.coord_update_with_msa_and_pair"
 
     def __init__(self, d_msa: int, d_pair: int, d_node: int = 64, d_edge: int = 64,
                  d_state: int = 32, n_neighbors: int = 64, p_dropout: float = 0.1,
@@ -191,7 +196,8 @@ class CoordUpdateWithMsaAndPair(nn.Module):
 
         h0 = node[..., None]
         h1 = xyz - ca[:, :, None, :]
-        out = self.se3(h0, h1, edge_w, rel_pos, mask, src_idx, dst_idx)
+        with span(self.span_name + ".se3"):
+            out = self.se3(h0, h1, edge_w, rel_pos, mask, src_idx, dst_idx)
         state = out[0][..., 0]
         disp = out[1]
         ca_new = ca + disp[:, :, CA_IDX]

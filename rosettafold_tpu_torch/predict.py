@@ -32,6 +32,7 @@ from .config import RoseTTAFoldConfig
 from .data.a3m import load_a3m, msa_features
 from .data.pdb import write_pdb
 from .models.rosettafold import RoseTTAFold
+from .tracing import span
 
 
 def fast_config(L: int) -> RoseTTAFoldConfig:
@@ -70,30 +71,33 @@ def predict(a3m_path: str, params_path: Optional[str] = None, n_seq: int = 64,
     torch outputs on `device`; forward_s is the first forward's wall time, or
     with benchmark=True a second, warm forward's. preset "exact": float32 and
     plain PyTorch; "fast": `fast_config(L)`. A prebuilt `model` skips the
-    build (its config then wins)."""
-    tokens = load_a3m(a3m_path)
-    msa, seq, aa_idx = msa_features(tokens, n_seq=n_seq, crop_len=crop, subsample=subsample)
-    L = msa.shape[-1]
-    if model is None:
-        if config is not None:
-            cfg = config
-        elif preset == "fast":
-            cfg = fast_config(L)
-        else:
-            cfg = RoseTTAFoldConfig(max_len=max(260, L))
-        model = build_model(cfg, params_path, device, seed)
-    args = [torch.as_tensor(a, device=device) for a in (msa, seq, aa_idx)]
-    with torch.inference_mode():
-        _sync(device)
-        t0 = time.perf_counter()
-        logits, xyz, plddt = model(*args)
-        _sync(device)
-        fwd_s = time.perf_counter() - t0
-        if benchmark:
-            t0 = time.perf_counter()
-            logits, xyz, plddt = model(*args)
+    build (its config then wins). Its steps are profiler spans (`tracing`)."""
+    with span("rf.predict"):
+        with span("rf.predict.featurize"):
+            tokens = load_a3m(a3m_path)
+            msa, seq, aa_idx = msa_features(tokens, n_seq=n_seq, crop_len=crop,
+                                            subsample=subsample)
+        L = msa.shape[-1]
+        if model is None:
+            if config is not None:
+                cfg = config
+            elif preset == "fast":
+                cfg = fast_config(L)
+            else:
+                cfg = RoseTTAFoldConfig(max_len=max(260, L))
+            with span("rf.predict.build"):
+                model = build_model(cfg, params_path, device, seed)
+        with span("rf.predict.to_device"):
+            args = [torch.as_tensor(a, device=device) for a in (msa, seq, aa_idx)]
+        with torch.inference_mode():
             _sync(device)
-            fwd_s = time.perf_counter() - t0
+            for _ in range(2 if benchmark else 1):
+                t0 = time.perf_counter()
+                with span("rf.predict.forward"):
+                    logits, xyz, plddt = model(*args)
+                with span("rf.predict.sync"):
+                    _sync(device)
+                fwd_s = time.perf_counter() - t0
     return logits, xyz, plddt, (msa, seq, aa_idx), fwd_s
 
 
