@@ -11,7 +11,7 @@ from torch import nn
 from ..ops import performer as favor
 from ..ops.cuda import fused_performer as fp
 from ..parallel import mesh
-from .layers import FUSED_MIN_L, Dense, layer_norm
+from .layers import FUSED_MIN_L, Dense, norm
 
 
 class FeedForward(nn.Module):
@@ -103,7 +103,7 @@ class PerformerSelfAttention(nn.Module):
         residual = None
         if ln_params is not None:
             residual = x
-            x = layer_norm(x, *ln_params).to(x.dtype)
+            x = norm(x, *ln_params, self.attn_impl).to(x.dtype)
         out = self.dropout(self._fused(x, None) if use_fused else self._plain(x))
         return out if residual is None else residual + out
 

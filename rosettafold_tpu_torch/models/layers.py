@@ -6,7 +6,8 @@ are float32. `nn.LayerNorm` keeps float32 statistics and returns float32 for
 float32 parameters, with the mean-of-squares variance (`use_fast_variance`).
 These classes reproduce that, so the bf16 trunk rounds at the places the JAX
 package does. Parameter names follow PyTorch (`weight`, `bias`); the bridge
-maps flax's (`kernel`, `scale`) onto them.
+maps flax's (`kernel`, `scale`) onto them. On the kernel path a LayerNorm is
+one launch of kernel LN (`norm`).
 """
 
 from __future__ import annotations
@@ -17,11 +18,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import layer_norm as ln_kernel
 from ..parallel.mesh import full, reduce_from_tp
 
 # L from which the JAX package engages the fused pair-track kernels (C, D, E,
 # F): the default of each module's crossover field
 FUSED_MIN_L = 128
+
+plain_calls = 0  # `norm` calls with impl "pallas" that autograd kept on the plain version
 
 
 def torch_dtype(name: Optional[str]):
@@ -62,16 +66,18 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.Module):
-    """flax LayerNorm: float32 statistics, var = E[x^2] - E[x]^2, float32 out."""
+    """flax LayerNorm: float32 statistics, var = E[x^2] - E[x]^2, float32 out.
+    `impl` ("xla" unless the model sets its `attn_impl`) chooses as `norm`."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
+        self.impl = "xla"
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias, self.eps)
+        return norm(x, self.weight, self.bias, self.eps, self.impl)
 
 
 def layer_norm(x, weight, bias, eps):
@@ -79,6 +85,21 @@ def layer_norm(x, weight, bias, eps):
     mu = x.mean(-1, keepdim=True)
     var = torch.clamp((x * x).mean(-1, keepdim=True) - mu * mu, min=0.0)
     return (x - mu) * torch.rsqrt(var + eps) * weight + bias
+
+
+def norm(x, weight, bias, eps, impl="xla"):
+    """`layer_norm`, through kernel LN's wrapper (ops/cuda/layer_norm.py,
+    which serves a CPU tensor with the plain version) where impl is "pallas"
+    and autograd records nothing; otherwise the plain version, counted in
+    `plain_calls` where impl asked for the kernel."""
+    global plain_calls
+    if impl != "pallas":
+        return layer_norm(x, weight, bias, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        plain_calls += 1
+        return layer_norm(x, weight, bias, eps)
+    return ln_kernel.fused_layer_norm(x, weight, bias, eps)
 
 
 class ConvNHWC(nn.Conv2d):

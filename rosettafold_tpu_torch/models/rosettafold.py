@@ -45,7 +45,7 @@ from ..parallel.mesh import shard_pair_constraint
 from ..tracing import span
 from .embeddings import MsaEmbedding, PairEmbedding
 from .heads import PredictionHead
-from .layers import ConvNHWC, Dense, torch_dtype
+from .layers import ConvNHWC, Dense, LayerNorm, torch_dtype
 from .msa import MsaUpdateUsingSelfAttention, MsaUpdateWithPair, MsaUpdateWithPairAndCoord
 from .pair import PairUpdateWithAxialAttention, PairUpdateWithMsa
 from .structure import CoordUpdateWithMsaAndPair, InitialCoordGenerationWithMsaAndPair
@@ -172,6 +172,8 @@ class RoseTTAFold(nn.Module):
         for name, mod in self.named_modules():
             if isinstance(mod, (ThreeTrackBlock, CoordUpdateWithMsaAndPair)):
                 mod.span_name = "rf." + name
+            elif isinstance(mod, LayerNorm):  # kernel LN on the kernel path
+                mod.impl = cfg.attn_impl
         if init:
             init_like_flax(self, torch.Generator().manual_seed(seed))
         self.eval()

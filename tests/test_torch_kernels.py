@@ -1,7 +1,9 @@
 """The port's kernels: A (tied attention), B (SE(3) attend, dense and gather
 layouts), C (fused LN + FAVOR+ + residual), D (fused LN + FF + residual), E
-(fused outer-product mean), F (3x3 conv) and H (FAVOR+ linear attention; its
-CPU tests against JAX are in tests/test_torch_long.py).
+(fused outer-product mean), F (3x3 conv), H (FAVOR+ linear attention; its
+CPU tests against JAX are in tests/test_torch_long.py) and LN (the model's
+LayerNorm, which replaces no TPU kernel; its plain version is
+`models/layers.py` `layer_norm`).
 
 On the CPU the wrappers run their plain PyTorch versions, which are held here
 against the JAX functions (Pallas interpret mode, or the file's own plain
@@ -11,25 +13,31 @@ The card's machine has no JAX, so they need none; run them there with
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_kernels.py
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from rosettafold_tpu_torch import bridge
+from rosettafold_tpu_torch.config import RoseTTAFoldConfig
+from rosettafold_tpu_torch.models import layers as tlayers
 from rosettafold_tpu_torch.models import resnet as tresnet
 from rosettafold_tpu_torch.models import se3 as tse3
 from rosettafold_tpu_torch.models import structure as tstruct
-from rosettafold_tpu_torch.models.rosettafold import init_like_flax
+from rosettafold_tpu_torch.models.rosettafold import RoseTTAFold, init_like_flax
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import so3 as tso3
 from rosettafold_tpu_torch.ops.cuda import linear_attention as tla
 from rosettafold_tpu_torch.ops.cuda import conv3x3 as tconv
 from rosettafold_tpu_torch.ops.cuda import fused_ff as tff
 from rosettafold_tpu_torch.ops.cuda import fused_performer as tfp
+from rosettafold_tpu_torch.ops.cuda import layer_norm as tln
 from rosettafold_tpu_torch.ops.cuda import outer_product as topm
 from rosettafold_tpu_torch.ops.cuda import se3_attend as tatt
 from rosettafold_tpu_torch.ops.cuda import tied_attention as ttied
 from rosettafold_tpu_torch.ops.performer import gaussian_orthogonal_matrix
+from rosettafold_tpu_torch.predict import build_model, fast_config
 
 try:  # the JAX reference: present on the CPU test host, absent beside the card
     import jax
@@ -1130,3 +1138,263 @@ def test_conv_input_grad_kernel_matches_plain_on_card(cuda, dtype, B, H, W, dila
     # either input dtype: the F tolerance, relative to the output's scale
     scale = max(1.0, float(want.abs().max()))
     torch.testing.assert_close(got, want, atol=2e-5 * scale, rtol=2e-5)
+
+
+# --- kernel LN: the model's LayerNorm (csrc/layer_norm.cu) ---------------------
+
+
+@pytest.mark.parametrize("cfg,impl", [(fast_config(160), "pallas"),
+                                      (RoseTTAFoldConfig(max_len=260), "xla")])
+def test_layer_norm_impl_follows_attn_impl(cfg, impl):
+    """The model sets every LayerNorm's impl to its attn_impl: the fast
+    preset takes kernel LN, the exact preset (predict's default) keeps the
+    plain version."""
+    with torch.device("meta"):
+        model = RoseTTAFold(cfg, init=False)
+    impls = {m.impl for m in model.modules() if isinstance(m, tlayers.LayerNorm)}
+    assert impls == {impl}
+    assert tlayers.LayerNorm(8).impl == "xla"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("view", [False, True])
+def test_layer_norm_pallas_on_cpu_is_plain(dtype, view):
+    """On a CPU tensor LayerNorm with impl "pallas" is `layer_norm`, bit for
+    bit, and launches nothing: kernel LN's wrapper serves a CPU tensor with
+    the plain version, as every wrapper does, and `plain_calls` counts only
+    what autograd keeps off the kernel."""
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(0.5, 1.0, size=(2, 5, 7, 24)).astype(np.float32)).to(dtype)
+    if view:  # the sequence-wise MSA layers' transposed view
+        x = x.transpose(1, 2)
+    ln = tlayers.LayerNorm(24)
+    ln.weight.data, ln.bias.data = (torch.from_numpy(a) for a in _affine(rng, 24))
+    ln.impl = "pallas"
+    calls, launches = tlayers.plain_calls, tln.launches
+    with torch.no_grad():
+        got = ln(x)
+        want = tlayers.layer_norm(x, ln.weight, ln.bias, ln.eps)
+    assert torch.equal(got, want) and got.dtype == torch.float32
+    assert tlayers.plain_calls == calls and tln.launches == launches
+
+
+# (grad mode, x requires grad, parameters require grad, impl) -> kernel taken
+NORM_CASES = [((False, True, True, "pallas"), True),
+              ((True, False, False, "pallas"), True),
+              ((True, True, False, "pallas"), False),
+              ((True, False, True, "pallas"), False),
+              ((False, False, False, "xla"), False)]
+
+
+@pytest.mark.parametrize("case,kernel", NORM_CASES)
+def test_norm_takes_kernel_only_where_autograd_records_nothing(monkeypatch, case, kernel):
+    """`norm` goes to kernel LN's wrapper only with impl "pallas" and while
+    autograd records nothing: training keeps the plain version, which has a
+    backward; every plain call with impl "pallas" is counted."""
+    grad, x_grad, p_grad, impl = case
+    taken = []
+    monkeypatch.setattr(tln, "fused_layer_norm", lambda *a: taken.append(a) or a[0].float())
+    x = torch.randn(3, 16, requires_grad=x_grad)
+    w, b = torch.ones(16, requires_grad=p_grad), torch.zeros(16, requires_grad=p_grad)
+    calls = tlayers.plain_calls
+    with torch.set_grad_enabled(grad):
+        tlayers.norm(x, w, b, 1e-5, impl)
+    assert len(taken) == int(kernel)
+    assert tlayers.plain_calls == calls + int(not kernel and impl == "pallas")
+
+
+def test_layer_norm_rows_of_folds_leading_axes():
+    """Rows of a view are read in place over at most three strided axes."""
+    x = torch.zeros(2, 6, 5, 8)
+    assert tln.rows_of(x) == ((1, 1, 60), (0, 0, 8))
+    assert tln.rows_of(x.transpose(1, 2)) == ((2, 5, 6), (240, 8, 40))
+    assert tln.rows_of(x[:1].transpose(1, 2)) == ((1, 5, 6), (0, 8, 40))
+    assert tln.rows_of(x[:, ::2]) == ((1, 6, 5), (0, 80, 8))  # B folds into the step
+    with pytest.raises(ValueError):
+        tln.rows_of(torch.zeros(2, 3, 4, 5, 8).permute(0, 2, 1, 3, 4)[:, :, :, ::2])
+    w = torch.ones(8)
+    assert tln.vector_loads(x, w, w, tln.rows_of(x)[1])
+    odd = torch.zeros(4, 361)  # float32 rows of 1444 bytes: one element a load
+    assert not tln.vector_loads(odd, torch.ones(361), torch.ones(361), tln.rows_of(odd)[1])
+
+
+@pytest.mark.parametrize("bad", ["float16", "float64", "bf16_weight", "last_axis", "shape",
+                                 "devices"])
+def test_layer_norm_wrapper_rejects(bad):
+    x, w, b = torch.zeros(4, 8), torch.ones(8), torch.zeros(8)
+    err = ValueError
+    if bad in ("float16", "float64"):
+        x, err = x.to(getattr(torch, bad)), TypeError
+    elif bad == "bf16_weight":
+        w, err = w.bfloat16(), TypeError
+    elif bad == "last_axis":
+        x = torch.zeros(8, 4).t()
+    elif bad == "shape":
+        w = torch.ones(9)
+    else:
+        x = torch.zeros(4, 8, device="meta")
+    with pytest.raises(err):
+        tln.fused_layer_norm(x, w, b, 1e-5)
+
+
+def _ln_case(cuda, shape, dtype, seed=0, C=None):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    C = C or shape[-1]
+    x = (torch.randn(*shape, generator=g, device=cuda) + 0.5).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    b = 0.1 * torch.randn(C, generator=g, device=cuda)
+    return x, w, b
+
+
+def _ln_check(x, w, b):
+    before = tln.launches
+    got = tln.fused_layer_norm(x, w, b, 1e-5)
+    want = tlayers.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert tln.launches == before + 1
+    assert got.dtype == torch.float32 and got.is_contiguous() and got.shape == x.shape
+    # float32 statistics on both sides, summed in another order (lanes, then
+    # shuffles, against PyTorch's reductions): the F32 kernels' tolerance
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [((1, 384, 384, 288), torch.bfloat16),
+                                         ((1, 1100, 1100, 288), torch.bfloat16),
+                                         ((1, 64, 384, 384), torch.float32)])
+def test_layer_norm_kernel_matches_plain_on_card(cuda, shape, dtype):
+    """The main path's shapes: the pair at L = 384 and 1100, the MSA."""
+    _ln_check(*_ln_case(cuda, shape, dtype))
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernel_reads_transposed_msa_in_place_on_card(cuda):
+    """The sequence-wise layers' transposed MSA: read in place, no copy."""
+    x, w, b = _ln_case(cuda, (1, 64, 384, 384), torch.float32)
+    xt = x.transpose(1, 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tln.fused_layer_norm(xt, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base <= got.numel() * 4
+    del got
+    _ln_check(xt, w, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [32, 64, 256, 361, 1024, 2304])
+@pytest.mark.parametrize("misaligned", [False, True])
+def test_layer_norm_kernel_widths_on_card(cuda, C, dtype, misaligned):
+    """Every width the model uses, at 4099 rows (no block's multiple), on
+    the vector path and, from a row start off 16 bytes, on the one-element
+    path; rows longer than a lane group's registers are read twice."""
+    x, w, b = _ln_case(cuda, (4099 * C + 1,), dtype, seed=C, C=C)
+    x = (x[1:] if misaligned else x[:-1]).view(4099, C)
+    if not misaligned:
+        assert tln.vector_loads(x, w, b, tln.rows_of(x)[1]) == ((C * x.element_size()) % 16 == 0)
+    _ln_check(x, w, b)
+
+
+@pytest.mark.gpu
+def test_layer_norm_wrapper_rejects_mixed_devices_on_card(cuda):
+    x, w, b = _ln_case(cuda, (4, 288), torch.bfloat16)
+    with pytest.raises(ValueError):
+        tln.fused_layer_norm(x, w.cpu(), b, 1e-5)
+
+
+@pytest.mark.gpu
+def test_layer_norm_module_on_card_launches_outside_autograd(cuda):
+    ln = tlayers.LayerNorm(288).to(cuda)
+    ln.impl = "pallas"
+    x = torch.randn(2, 7, 288, device=cuda, dtype=torch.bfloat16)
+    launches, calls = tln.launches, tlayers.plain_calls
+    with torch.no_grad():
+        ln(x)
+    assert (tln.launches, tlayers.plain_calls) == (launches + 1, calls)
+    ln(x).sum().backward()  # parameters require grad: the plain version
+    assert (tln.launches, tlayers.plain_calls) == (launches + 1, calls + 1)
+    assert ln.weight.grad is not None
+
+
+def _rel(a, b, xyz=False):
+    a, b = a.double(), b.double()
+    if xyz:  # centred on b's centroid
+        c = b.reshape(-1, 3).mean(0)
+        a, b = a - c, b - c
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+# a fast_config(160) forward with kernel LN against plain LayerNorms, each
+# stage from the kernel run's inputs (`_ln_stage_gaps`): three times the
+# largest relative gap of weight seeds 0-4 on an H100 (PERF.md §6);
+# `head` is the prediction head's projection, `logits` the whole head
+LN_STAGE_LIMITS = {"msa": 9.8e-3, "pair": 2.2e-2, "xyz0": 4.2e-3, "state": 3.1e-6,
+                   "xyz": 2.1e-6, "msa_fb": 5.9e-4, "head": 1.1e-4, "logits": 2.3e-2}
+
+
+def _ln_stage_gaps(cuda, seed):
+    """{stage output: largest relative gap} of a bf16 fast_config(160)
+    forward with kernel LN against the same weights with every LayerNorm
+    plain, each stage run again from the kernel run's inputs; asserts that
+    every LayerNorm call of the kernel run launched kernel LN."""
+    from rosettafold_tpu_torch.data.a3m import load_a3m, msa_features
+    from rosettafold_tpu_torch.models import heads as theads, msa as tmsa
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    model = build_model(fast_config(160), device=cuda, seed=seed)
+    msa, seq, aa = (torch.as_tensor(a, device=cuda) for a in msa_features(
+        load_a3m(os.path.join(root, "examples", "demo_casp.a3m")), n_seq=64, crop_len=160))
+    keys = {tstruct.InitialCoordGenerationWithMsaAndPair: ("xyz0",),
+            tstruct.CoordUpdateWithMsaAndPair: ("state", "xyz"),
+            tmsa.MsaUpdateWithPairAndCoord: ("msa_fb",),
+            theads.PredictionHead: ("head", "logits")}
+    stages, hooks, ln_calls = [], [], [0]
+    for mod in model.modules():
+        if isinstance(mod, tlayers.LayerNorm):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda *_: ln_calls.__setitem__(0, ln_calls[0] + 1)))
+        k = ("msa", "pair") if type(mod).__name__ == "TwoTrackBlock" else keys.get(type(mod))
+        if k:
+            hooks.append(mod.register_forward_hook(
+                lambda m, args, out, k=k: stages.append((m, k, args))))
+
+    def run(mod, args):
+        """The stage's outputs in the order of its keys."""
+        out = mod(*args)
+        if isinstance(mod, theads.PredictionHead):
+            return [mod.proj(mod.proj_ln(*args)), torch.cat([v.flatten() for v in out.values()])]
+        return list(out) if isinstance(out, tuple) else [out]
+
+    gaps = {}
+    with torch.inference_mode():
+        launches, calls = tln.launches, tlayers.plain_calls
+        model(msa, seq, aa)
+        torch.cuda.synchronize()
+        assert ln_calls[0] > 0 and tln.launches - launches == ln_calls[0]
+        assert tlayers.plain_calls == calls
+        for h in hooks:
+            h.remove()
+        assert len(stages) == 3 + 1 + 3 * 3 + 2 + 1
+        got = [run(m, a) for m, _, a in stages]
+        for m in model.modules():
+            if isinstance(m, tlayers.LayerNorm):
+                m.impl = "xla"
+        for (mod, k, args), outs in zip(stages, got):
+            for key, o, w_ in zip(k, outs, run(mod, args)):
+                gap = _rel(o, w_, xyz=key.startswith("xyz"))
+                gaps[key] = max(gaps.get(key, 0.0), gap)
+    return gaps
+
+
+@pytest.mark.gpu
+def test_layer_norm_kernel_model_within_stage_limits_on_card(cuda):
+    """fast_config(160) with kernel LN against the same weights with every
+    LayerNorm plain, stage by stage from the kernel run's inputs, within
+    limits read from this comparison (LN_STAGE_LIMITS); every LayerNorm call
+    of the forward launches the kernel."""
+    gaps = _ln_stage_gaps(cuda, 0)
+    for key, limit in LN_STAGE_LIMITS.items():
+        assert gaps[key] <= limit, (key, gaps[key], limit)
