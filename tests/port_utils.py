@@ -4,8 +4,21 @@ import dataclasses
 
 import jax
 import numpy as np
+import pytest
+from threadpoolctl import threadpool_limits
 
 from rosettafold_tpu_torch import config as tconfig
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One thread for PyTorch's intra-op pool and numpy's BLAS while a port test
+    module runs (autouse in every module that imports it). Tiny-width work gains
+    nothing from more, and beside the suite's other parallel workers more
+    threads oversubscribe the cores (an 8-core host): six tiny train steps took
+    490 s instead of 12, and the SO(3) Q tables (numpy SVDs) 44 s instead of 1."""
+    with threadpool_limits(limits=1):
+        yield
 
 
 def port_config(jcfg):

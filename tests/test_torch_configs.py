@@ -34,6 +34,7 @@ from rosettafold_tpu_torch.models import structure as tstruct
 from rosettafold_tpu_torch.models.rosettafold import RoseTTAFold
 from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops.cuda import se3_attend as tatt
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 from tests.port_utils import port_config, random_params
 
 TOL = 1e-4

@@ -53,6 +53,7 @@ try:  # the JAX reference: present on the CPU test host, absent beside the card
     from rosettafold_tpu.ops.pallas import outer_product as jopm
     from rosettafold_tpu.ops.pallas import se3_attend as jatt
     from rosettafold_tpu.ops.pallas import tied_attention as jtied
+    from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
     from tests.port_utils import random_params
 except ImportError:
     jax = None

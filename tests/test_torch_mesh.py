@@ -44,6 +44,7 @@ from rosettafold_tpu_torch.parallel import dryrun
 from rosettafold_tpu_torch.parallel import mesh as tmesh
 from rosettafold_tpu_torch.train import checkpoint as tckpt
 from rosettafold_tpu_torch.train import step as tstep
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 from tests.port_utils import port_config, random_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -93,24 +94,20 @@ def run(tmp_path_factory):
     np.savez(tmp / "batch.npz", **batch)
     launched = {name: _launch(name, n, tp, tmp) for name, (n, tp) in WORLDS.items()}
 
-    # the port's single-process step on the same weights and batch
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        state = tstep.create_train_state(tcfg, 0, device="cpu")
-        state.model.load_state_dict(sd)
-        for mod in state.model.modules():
-            if isinstance(mod, PerformerSelfAttention):
-                mod.fused_favor_min_l = FUSED_MIN_L
-        grads = {}  # as the optimizer receives them: it clips them in place
-        state.optimizer.register_step_pre_hook(lambda *_: grads.update(
-            {n: p.grad.clone() for n, p in state.model.named_parameters()
-             if p.grad is not None}))
-        state, metrics = tstep.make_train_step(tcfg)(state, tstep.to_device(batch, "cpu"), 0)
-        port = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
-                "params": {n: p.detach().clone() for n, p in state.model.named_parameters()}}
-    finally:
-        torch.set_num_threads(threads)
+    # the port's single-process step on the same weights and batch, on one intra-op
+    # thread as each rank (one_thread here, OMP_NUM_THREADS in the ranks)
+    state = tstep.create_train_state(tcfg, 0, device="cpu")
+    state.model.load_state_dict(sd)
+    for mod in state.model.modules():
+        if isinstance(mod, PerformerSelfAttention):
+            mod.fused_favor_min_l = FUSED_MIN_L
+    grads = {}  # as the optimizer receives them: it clips them in place
+    state.optimizer.register_step_pre_hook(lambda *_: grads.update(
+        {n: p.grad.clone() for n, p in state.model.named_parameters()
+         if p.grad is not None}))
+    state, metrics = tstep.make_train_step(tcfg)(state, tstep.to_device(batch, "cpu"), 0)
+    port = {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "params": {n: p.detach().clone() for n, p in state.model.named_parameters()}}
 
     def jloss(p):
         out = jmodel.apply(p, batch["msa"], batch["seq"], batch["aa_idx"])

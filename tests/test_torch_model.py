@@ -21,6 +21,7 @@ from rosettafold_tpu.utils.scan_convert import adapt_params
 from rosettafold_tpu_torch import bridge
 from rosettafold_tpu_torch import predict as tpredict
 from rosettafold_tpu_torch.models.rosettafold import RoseTTAFold
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 from tests.port_utils import port_config, random_params
 
 B, N, L = 1, 4, 16

@@ -30,6 +30,7 @@ from rosettafold_tpu_torch.models import resnet as tresnet
 from rosettafold_tpu_torch.models import rosettafold as trf
 from rosettafold_tpu_torch.models import se3 as tse3
 from rosettafold_tpu_torch.models import structure as tstruct
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 from tests.port_utils import random_params
 
 TOL = 1e-4

@@ -30,6 +30,7 @@ from rosettafold_tpu_torch.ops import knn as tknn
 from rosettafold_tpu_torch.ops import performer as tfavor
 from rosettafold_tpu_torch.ops import so3 as tso3
 from rosettafold_tpu_torch.ops.sinusoidal import sinusoidal_table as t_sinusoidal_table
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 
 ATOL = 1e-5
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

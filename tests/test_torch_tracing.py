@@ -15,6 +15,7 @@ from rosettafold_tpu_torch import tracing
 from rosettafold_tpu_torch.config import tiny_config
 from rosettafold_tpu_torch.models import rosettafold
 from rosettafold_tpu_torch.predict import predict
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(REPO, "examples"))

@@ -31,21 +31,11 @@ from rosettafold_tpu_torch.train import geometry as tgeo
 from rosettafold_tpu_torch.train import losses as tlosses
 from rosettafold_tpu_torch.train import step as tstep
 from rosettafold_tpu_torch.train.loop import fit
+from tests.port_utils import one_thread  # noqa: F401 (autouse fixture)
 from tests.port_utils import port_config, random_params
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 T = torch.from_numpy
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for PyTorch: tiny-width steps gain nothing from
-    more, and beside the suite's other parallel workers more threads
-    oversubscribe the cores (six tiny train steps took 490 s instead of 12)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
