@@ -72,6 +72,17 @@ Phases (any failure exits non-zero and prints no result line):
      beside its byte bound and the plain version's ms; phases 4 and 4b
      require every LayerNorm call of their forwards to launch it
      (`layers.plain_calls` unchanged);
+  3d. kernel IN (the pair ResNets' InstanceNorm statistics and affine + ELU
+     epilogue; it replaces no TPU kernel either) against `instance_stats` and
+     `affine_elu_rows` at the served shapes (B=4 at L=128, the ragged L = 250,
+     L = 384 and 1100, bf16): inv / shift within 1e-5 of the largest, the
+     epilogue's bf16 outputs, with the residual (the blocks' form) and without
+     (the input norms'), at least 99.9 % bit-equal and all within one bf16
+     ulp; each entry point's CUDA-event and device ms beside its byte bound and
+     the plain version's ms; phases 4 and 4b require every InstanceNorm
+     decision of their forwards to launch it (`resnet.plain_calls` unchanged:
+     engagement share 1.0) and IN to run 77 times a forward at L >= 128
+     (23 conv blocks x 3, 4 input norms x 2) and never below;
   4. serving: requests through `predict()` with the fast preset, made from
      examples/demo_casp.a3m (crop 64 / n_seq 64, crop 96 / 32, crop 120 / 8,
      crop 128 / 64, the whole chain L=250 / 32), each timed over repeated warm
@@ -217,7 +228,11 @@ KERNELS = {
     "linear_attention": Kernel("linear_attention", "launches", "linear_attention.cu",
                                "linear_attention.py:82", 0, 0, 0),
 }
-SOURCES = sorted({k.source[:-3] for k in KERNELS.values()} | {"layer_norm"})
+SOURCES = sorted({k.source[:-3] for k in KERNELS.values()} | {"layer_norm", "instance_norm"})
+# kernel IN's calls a serving forward at L >= 128: each of the 23 conv blocks
+# (F's two launches a block) takes two statistics and an epilogue, each of the
+# four head ResNets' input norms a statistics and an epilogue
+IN_PER_FWD = KERNELS["conv3x3"].per_fwd // 2 * 3 + 4 * 2
 # phase 3c: kernel LN's shapes, (x shape, dtype, the transposed view): the
 # pair at L = 384 and 1100 (16-byte loads, one pass), the MSA and the
 # sequence-wise layers' view of it, and the SE(3) self-interaction's Gram
@@ -226,6 +241,12 @@ SOURCES = sorted({k.source[:-3] for k in KERNELS.values()} | {"layer_norm"})
 LN_SHAPES = (((1, 384, 384, 288), "bfloat16", False), ((1, 1100, 1100, 288), "bfloat16", False),
              ((1, 64, 384, 384), "float32", False), ((1, 64, 384, 384), "float32", True),
              ((1, 1100, 361), "float32", False), ((1, 1100, 2304), "float32", False))
+# phase 3d: kernel IN's shapes, the pair ResNets' maps as served: B=4 at L=128
+# (the batched forward), L = 250 (the whole demo chain: 62,500 pixels, 4 past a
+# multiple of 16, so the pixel loops' tail runs), L = 384 (the short requests'
+# longest) and 1100
+IN_SHAPES = ((4, 128, 128, 288), (1, 250, 250, 288), (1, 384, 384, 288),
+             (1, 1100, 1100, 288))
 PAIR_KERNELS = ("fused_performer", "fused_ff", "outer_product", "conv3x3")
 # float32 tolerances (atol, rtol): those of the JAX kernel tests (A 2e-5, B
 # 2e-5 on both layouts, C 3e-5, D, E, F 2e-5, H 3e-5 absolute,
@@ -267,7 +288,8 @@ PROFILED = {"A": ("tied_fused_kernel", "tied_logits_kernel", "tied_pv_kernel", "
             "G": ("tied_bwd_dsum_kernel", "tied_bwd_sdp_kernel", "tied_bwd_grad_kernel",
                   "dkv_f32_kernel", "dq_f32_kernel"),
             "H": ("la_wgmma_kernel", "la_f32_kernel"),
-            "LN": ("ln_rows_kernel",)}
+            "LN": ("ln_rows_kernel",),
+            "IN": ("instance_stats_kernel", "instance_combine_kernel", "instance_apply_kernel")}
 # ms a call the wrappers' host side takes is timed over this many calls
 HOST_CALLS = 50
 E2E_LOGITS, E2E_XYZ = 1e-2, 0.4
@@ -738,24 +760,105 @@ def phase_layer_norm():
     return out
 
 
-def _ln_counts():
-    """(kernel LN's launches, the plain calls on the kernel path) so far."""
-    from rosettafold_tpu_torch.models import layers
-    from rosettafold_tpu_torch.ops.cuda import layer_norm as ln
+def _bf16_gap(got, ref):
+    """(share of outputs bit-equal, max|d|, every output within one bf16 ulp
+    of ref, 2^-7 |ref|) of two outputs of the same float32 steps."""
+    equal = float((got == ref).float().mean())
+    d = (got.float() - ref.float()).abs()
+    within = bool((d <= 2.0 ** -7 * ref.float().abs().clamp_min(2.0 ** -126)).all())
+    return equal, float(d.max()), within
 
-    return ln.launches, layers.plain_calls
+
+def phase_instance_norm():
+    """Phase 3d: kernel IN against `instance_stats` and `affine_elu_rows`
+    (IN_SHAPES), the epilogue with the residual (the blocks') and without
+    (the input norms'); its records by shape and entry point."""
+    import torch
+
+    from rosettafold_tpu_torch.models import resnet
+    from rosettafold_tpu_torch.ops.cuda import instance_norm as tin
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for shape in IN_SHAPES:
+        C = shape[-1]
+        scale, offset = 0.5 + torch.rand(C, generator=g, device="cuda"), _normal((C,), 1.0, g)
+        y = (_normal(shape, 1.0, g) * scale + offset).bfloat16()
+        x = _normal(shape, 1.0, g, torch.bfloat16)
+        w, b = 1.0 + _normal((C,), 0.1, g), _normal((C,), 0.1, g)
+        tag = f"{shape} bfloat16"
+        inv, shift = tin.instance_affine(y, w, b, 1e-6)
+        want = resnet.instance_stats(y, w, b, 1e-6)
+        err = max(float((a - c).abs().max() / c.abs().max()) for a, c in zip((inv, shift), want))
+        require(err <= 1e-5, f"IN statistics disagree with instance_stats at {tag}: {err:.3e}")
+        rec = {"stats_rel_err": err}
+        forms = {"apply": x, "apply_no_residual": None}
+        for name, res in forms.items():
+            got = tin.instance_apply(y, inv, shift, res, torch.bfloat16)
+            ref = resnet.affine_elu_rows(y, inv, shift, torch.bfloat16, 128, res)
+            equal, gap, within = _bf16_gap(got, ref)
+            del got, ref
+            require(equal >= 0.999 and within,
+                    f"IN {name} at {tag}: {equal:.5f} of its outputs bit-equal (0.999), max|d|"
+                    f" {gap:.3e}, {'all' if within else 'not all'} within one bf16 ulp")
+            rec[name] = {"bit_equal": equal, "max_abs_err": gap}
+        calls = {
+            "stats": (lambda: tin.instance_affine(y, w, b, 1e-6),
+                      lambda: resnet.instance_stats(y, w, b, 1e-6), "instance_",
+                      y.numel() * 2 + 4 * C * 4 * shape[0])}
+        for name, res in forms.items():
+            calls[name] = (lambda res=res: tin.instance_apply(y, inv, shift, res, torch.bfloat16),
+                           lambda res=res: resnet.affine_elu_rows(y, inv, shift, torch.bfloat16,
+                                                                  128, res),
+                           "instance_apply_kernel",
+                           y.numel() * (4 if res is None else 6) + 2 * C * 4 * shape[0])
+        for name, (kernel, plain, dev_name, nbytes) in calls.items():
+            ms = cuda_time(kernel, 20)
+            device_ms = _device_ms(kernel, dev_name, calls=10) or None
+            plain_ms = cuda_time(plain, 3)
+            bound_ms = nbytes / HBM_BYTES_S * 1e3
+            share = None if device_ms is None else bound_ms / device_ms
+            log(f"instance_norm {name} {tag}: kernel {ms:.4f} ms device {device_ms} ms plain"
+                f" {plain_ms:.4f} ms bound {bound_ms:.4f} ms (bytes; device time"
+                f" {'not measured' if share is None else f'{share:.1%} of it'})")
+            rec.setdefault(name, {}).update(ms=ms, device_ms=device_ms, plain_ms=plain_ms,
+                                            bound_ms=bound_ms, bound_share=share)
+        log(f"instance_norm {tag}: statistics rel err {err:.3e} (1e-5); epilogue bit-equal"
+            f" {rec['apply']['bit_equal']:.5f} with the residual,"
+            f" {rec['apply_no_residual']['bit_equal']:.5f} without, the rest within one bf16 ulp")
+        out[tag] = rec
+        del y, x
+    return out
 
 
-def _ln_engaged(what, launches0, plain0, forwards):
-    """Every LayerNorm call since (launches0, plain0) launched kernel LN."""
-    from rosettafold_tpu_torch.models import layers
-    from rosettafold_tpu_torch.ops.cuda import layer_norm as ln
+# the normalisation kernels' wrapper modules and the model modules whose
+# `plain_calls` count the calls of their kernel path kept plain
+NORMS = {"LN": ("layer_norm", "layers"), "IN": ("instance_norm", "resnet")}
 
-    n = ln.launches - launches0
-    log(f"{what}: kernel LN {n / forwards:.1f} launches a forward,"
-        f" {layers.plain_calls - plain0} plain calls")
-    require(n > 0 and layers.plain_calls == plain0,
-            f"{what}: a LayerNorm call on the kernel path took the plain version")
+
+def _norm_counts():
+    """{kernel: (its launch counter, its plain calls)} so far, for LN and IN."""
+    import importlib
+
+    return {k: (importlib.import_module(f"rosettafold_tpu_torch.ops.cuda.{op}").launches,
+                importlib.import_module(f"rosettafold_tpu_torch.models.{model}").plain_calls)
+            for k, (op, model) in NORMS.items()}
+
+
+def _norms_engaged(what, counts0, forwards, in_calls):
+    """Every LayerNorm and InstanceNorm call of the kernel path since counts0
+    launched its kernel (none kept plain: engagement share 1.0), and kernel
+    IN ran exactly `in_calls` times."""
+    for k, ((n, plain), (n0, plain0)) in zip(NORMS, zip(_norm_counts().values(),
+                                                          counts0.values())):
+        n, plain = n - n0, plain - plain0
+        log(f"{what}: kernel {k} {n / forwards:.1f} calls a forward, {plain} plain calls,"
+            f" engagement share {n / max(1, n + plain):.4f}")
+        require(n > 0 and plain == 0,
+                f"{what}: a {k} call on the kernel path took the plain version")
+        if k == "IN":
+            require(n == in_calls, f"{what}: kernel IN ran {n} times, not {in_calls}"
+                    f" ({IN_PER_FWD} a forward at L >= 128)")
 
 
 def phase_pair_kernels(res):
@@ -1247,7 +1350,7 @@ def phase_serving():
 
     readings = {}
     zero_counts()  # count only the main path from here
-    ln0 = _ln_counts()
+    norms0, in_calls = _norm_counts(), 0
     for crop, n_seq in REQUESTS:
         logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
             A3M, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
@@ -1257,6 +1360,7 @@ def phase_serving():
         args = [torch.as_tensor(a, device="cuda") for a in (msa, seq, aa)]
         _, times = _timed_forwards(model, args, REPS)
         add(L, 2 + REPS)
+        in_calls += IN_PER_FWD * (2 + REPS) * (L >= 128)
         check(f"request L={L}")
         med = statistics.median(times)
         readings[f"request L={L} n_seq={msa.shape[1]}"] = med
@@ -1267,6 +1371,7 @@ def phase_serving():
         (logits, xyz, plddt), times = _timed_forwards(model, args, 1 + REPS)
         _check_outputs(logits, xyz, plddt, B, L)
         add(L, 1 + REPS)
+        in_calls += IN_PER_FWD * (1 + REPS) * (L >= 128)
         check(f"batch B={B} N={N} L={L}")
         med = statistics.median(times[1:])
         readings[f"batch B={B} N={N} L={L}"] = med
@@ -1275,7 +1380,8 @@ def phase_serving():
             f" max {max(times[1:]):.2f}")
     counts = read_counts()
     log("serving path launches: " + ", ".join(f"{n} {c}" for n, c in counts.items()))
-    _ln_engaged("serving path", *ln0, len(REQUESTS) * (2 + REPS) + len(BATCHES) * (1 + REPS))
+    forwards = len(REQUESTS) * (2 + REPS) + len(BATCHES) * (1 + REPS)
+    _norms_engaged("serving path", norms0, forwards, in_calls)
     return counts, model
 
 
@@ -1308,7 +1414,7 @@ def phase_long_serving(a3m):
                           seed=0)
     expected = dict.fromkeys(KERNELS, 0)
     zero_counts()  # count only the main path from here
-    ln0 = _ln_counts()
+    norms0 = _norm_counts()
     for crop, n_seq, reps in LONG_REQUESTS:
         logits, xyz, plddt, (msa, seq, aa), fwd_s = P.predict(
             a3m, n_seq=n_seq, crop=crop, preset="fast", benchmark=True, device="cuda",
@@ -1331,7 +1437,8 @@ def phase_long_serving(a3m):
             f" {overflow} (three-track blocks, final)")
     long_counts = read_counts()
     log("long-chain path launches: " + ", ".join(f"{n} {c}" for n, c in long_counts.items()))
-    _ln_engaged("long-chain path", *ln0, sum(2 + reps for _, _, reps in LONG_REQUESTS))
+    forwards = sum(2 + reps for _, _, reps in LONG_REQUESTS)
+    _norms_engaged("long-chain path", norms0, forwards, IN_PER_FWD * forwards)
     profile_report(f"L={L} forward", lambda: _timed_forwards(model, args, 1))
     del model, logits, xyz, plddt
     torch.cuda.empty_cache()
@@ -2124,7 +2231,8 @@ def main() -> int:
         phase_pair_kernels(res)
         phase_backward_kernels(res)
         layer_norm = phase_layer_norm()
-        log(f"phases 1-3c: {time.perf_counter() - t0:.1f} s")
+        instance_norm = phase_instance_norm()
+        log(f"phases 1-3d: {time.perf_counter() - t0:.1f} s")
         serving, model = phase_serving()
         log(f"phases 1-4: {time.perf_counter() - t0:.1f} s")
         phase_profile(model)
@@ -2159,7 +2267,8 @@ def main() -> int:
     if missing:
         print(f"chip_smoke.py: kernels without launches or times: {missing}", file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": kernels, "layer_norm": layer_norm}), flush=True)
+    print(json.dumps({"kernels": kernels, "layer_norm": layer_norm,
+                      "instance_norm": instance_norm}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,10 +3,16 @@ InstanceNorm: eps 1e-6, biased variance, float32 statistics.
 With conv_impl="pallas" the 3x3 convs of a block run as kernel F
 (ops/cuda/conv3x3.py) from `fused_min_l` (default 128, as JAX).
 
+On the kernel path outside autograd, on a CUDA tensor, the InstanceNorm
+statistics and the affine + ELU epilogues (of the blocks and of the ResNet's
+input norm) run as kernel IN (ops/cuda/instance_norm.py); `takes_kernel` is
+the one decision.
+
 `row_chunk` is the long-L inference mode (JAX's `row_chunk`): above that many
 rows, every full-tensor float32 pass runs over row chunks into one output
 buffer, so its temporaries are O(chunk * L * C). On the kernel path F runs
-on the whole tensor and only the residual + ELU epilogue is chunked; on the
+on the whole tensor and only the plain residual + ELU epilogue is chunked
+(kernel IN holds no float32 temporary, so it takes the whole map); on the
 plain path the convolutions run chunk by chunk too, each reading a halo of
 `dilation` rows, with InstanceNorm statistics taken over the whole raw conv
 output. The result equals the unchunked one."""
@@ -17,8 +23,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import instance_norm as in_kernel
 from ..ops.cuda.conv3x3 import conv3x3_fused
 from .layers import FUSED_MIN_L, ConvNHWC
+
+# InstanceNorm decisions on the kernel path that autograd or active dropout kept
+# on the plain version (a CPU tensor takes the plain version uncounted)
+plain_calls = 0
 
 
 class InstanceNorm2d(nn.Module):
@@ -38,14 +49,33 @@ class InstanceNorm2d(nn.Module):
         return (x - mean) / torch.sqrt(var + self.eps) * self.weight + self.bias
 
 
-def instance_stats(y, norm: InstanceNorm2d):
+def instance_stats(y, weight, bias, eps):
     """InstanceNorm of y as the affine pair (inv, shift), each (B, C) float32:
     IN(y) = y * inv + shift (JAX `_InStats(return_affine=True)`)."""
     yf = y.float()
     mean = yf.mean(dim=(1, 2))
     var = yf.var(dim=(1, 2), unbiased=False)
-    inv = norm.weight / torch.sqrt(var + norm.eps)
-    return inv, norm.bias - mean * inv
+    inv = weight / torch.sqrt(var + eps)
+    return inv, bias - mean * inv
+
+
+def takes_kernel(*tensors) -> bool:
+    """Whether an InstanceNorm call of the kernel path runs as kernel IN: its
+    first tensor on the card and autograd recording none of them. A call that
+    autograd keeps on the plain version is counted in `plain_calls`."""
+    global plain_calls
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        plain_calls += 1
+        return False
+    return tensors[0].is_cuda
+
+
+def kernel_stats(y, norm: InstanceNorm2d):
+    """The kernel path's `instance_stats` with norm's parameters: kernel IN
+    where `takes_kernel`."""
+    if takes_kernel(y, norm.weight, norm.bias):
+        return in_kernel.instance_affine(y, norm.weight, norm.bias, norm.eps)
+    return instance_stats(y, norm.weight, norm.bias, norm.eps)
 
 
 def chunks(H: int, row_chunk):
@@ -90,6 +120,14 @@ def affine_elu_rows(y, inv, shift, out_dtype, row_chunk, x=None):
     return out
 
 
+def kernel_affine_elu(y, inv, shift, out_dtype, row_chunk, x=None):
+    """The kernel path's `affine_elu_rows`: kernel IN, on the whole map, where
+    `takes_kernel`."""
+    if takes_kernel(y, inv, shift, x):
+        return in_kernel.instance_apply(y, inv, shift, x, out_dtype)
+    return affine_elu_rows(y, inv, shift, out_dtype, row_chunk, x)
+
+
 def hwio(conv: ConvNHWC):
     """The conv's float32 weight in the JAX layout (kh, kw, C_in, C_out);
     kernel F casts it to the activations' dtype for the products and keeps
@@ -100,34 +138,38 @@ def hwio(conv: ConvNHWC):
 def conv_block_kernels(block, x, dilation: int, row_chunk=None):
     """The residual conv block on kernel F, in JAX's kernel-path form: conv ->
     IN statistics as (inv, shift) -> conv with the IN affine + ELU as its
-    pre-op (or, under active dropout, applied before it) -> elu(x + y2 * inv2
-    + shift2), that last step row-chunked above row_chunk rows. `block` holds
-    conv1, conv2, in1, in2, dropout and dtype. JAX's row tiling can refuse
+    pre-op (or, under active dropout, applied before it, plain) -> elu(x + y2
+    * inv2 + shift2). The statistics and that last step run as kernel IN where
+    `takes_kernel`; the plain last step is row-chunked above row_chunk rows.
+    `block` holds conv1, conv2, in1, in2, dropout and dtype. JAX's row tiling can refuse
     some L (`pick_tile` returns None) and falls back to the XLA conv there;
     kernel F takes every L, with the same result."""
+    global plain_calls
     ct = block.dtype or torch.float32
     x = x.to(ct).contiguous()
     y1 = conv3x3_fused(x, hwio(block.conv1), None, dilation, ct)
-    inv1, shift1 = instance_stats(y1, block.in1)
+    inv1, shift1 = kernel_stats(y1, block.in1)
     if block.training and block.dropout.p > 0:
+        plain_calls += 1
         a = F.elu(y1.float() * inv1[:, None, None, :] + shift1[:, None, None, :])
         y2 = conv3x3_fused(block.dropout(a).to(ct), hwio(block.conv2), None, dilation, ct)
     else:
         y2 = conv3x3_fused(y1, hwio(block.conv2), (inv1, shift1), dilation, ct)
-    inv2, shift2 = instance_stats(y2, block.in2)
-    return affine_elu_rows(y2, inv2, shift2, ct, row_chunk, x)
+    inv2, shift2 = kernel_stats(y2, block.in2)
+    return kernel_affine_elu(y2, inv2, shift2, ct, row_chunk, x)
 
 
 def conv_block_rows(block, x, dilation: int, row_chunk: int):
     """The plain residual conv block, row-chunked (inference): both convs
     through `conv_rows`, IN statistics over the whole raw conv outputs, the
     first IN + ELU applied in the second conv's read."""
+    n1, n2 = block.in1, block.in2
     y1 = conv_rows(block.conv1, x, dilation, row_chunk)
-    inv1, shift1 = instance_stats(y1, block.in1)
+    inv1, shift1 = instance_stats(y1, n1.weight, n1.bias, n1.eps)
     y2 = conv_rows(block.conv2, y1, dilation, row_chunk,
                    pre=lambda t: F.elu(t.float() * inv1[:, None, None, :]
                                        + shift1[:, None, None, :]))
-    inv2, shift2 = instance_stats(y2, block.in2)
+    inv2, shift2 = instance_stats(y2, n2.weight, n2.bias, n2.eps)
     return affine_elu_rows(y2, inv2, shift2, block.dtype or torch.float32, row_chunk, x)
 
 
@@ -149,9 +191,12 @@ class ResBlock2D(nn.Module):
         self.in2 = InstanceNorm2d(channels)
         self.dropout = nn.Dropout(p_dropout)
 
+    def kernels(self, H: int) -> bool:
+        """Whether a map of H rows takes `conv_block_kernels`."""
+        return self.conv_impl == "pallas" and self.kernel_size == 3 and H >= self.fused_min_l
+
     def forward(self, x):
-        if (self.conv_impl == "pallas" and self.kernel_size == 3
-                and x.shape[1] >= self.fused_min_l):
+        if self.kernels(x.shape[1]):
             return conv_block_kernels(self, x, self.dilation, self.row_chunk)
         if len(chunks(x.shape[1], self.row_chunk)) > 1:
             if self.training:
@@ -182,9 +227,14 @@ class ResNet(nn.Module):
 
     def forward(self, x):
         x = self.proj_in(x)
-        if len(chunks(x.shape[1], self.row_chunk)) > 1:
-            inv, shift = instance_stats(x, self.in_in)
-            x = affine_elu_rows(x, inv, shift, self.dtype or torch.float32, self.row_chunk)
+        ct, norm = self.dtype or torch.float32, self.in_in
+        if (self.n > 0 and self.block_0.kernels(x.shape[1])
+                and takes_kernel(x, norm.weight, norm.bias)):
+            inv, shift = in_kernel.instance_affine(x, norm.weight, norm.bias, norm.eps)
+            x = in_kernel.instance_apply(x, inv, shift, None, ct)
+        elif len(chunks(x.shape[1], self.row_chunk)) > 1:
+            inv, shift = instance_stats(x, norm.weight, norm.bias, norm.eps)
+            x = affine_elu_rows(x, inv, shift, ct, self.row_chunk)
         else:
             x = F.elu(self.in_in(x))
             if self.dtype is not None:

@@ -1,9 +1,11 @@
 """The port's kernels: A (tied attention), B (SE(3) attend, dense and gather
 layouts), C (fused LN + FAVOR+ + residual), D (fused LN + FF + residual), E
 (fused outer-product mean), F (3x3 conv), H (FAVOR+ linear attention; its
-CPU tests against JAX are in tests/test_torch_long.py) and LN (the model's
+CPU tests against JAX are in tests/test_torch_long.py), LN (the model's
 LayerNorm, which replaces no TPU kernel; its plain version is
-`models/layers.py` `layer_norm`).
+`models/layers.py` `layer_norm`) and IN (the pair ResNets' InstanceNorm
+statistics and epilogue, which replaces no TPU kernel either; its plain
+versions are `models/resnet.py` `instance_stats` and `affine_elu_rows`).
 
 On the CPU the wrappers run their plain PyTorch versions, which are held here
 against the JAX functions (Pallas interpret mode, or the file's own plain
@@ -32,6 +34,7 @@ from rosettafold_tpu_torch.ops.cuda import linear_attention as tla
 from rosettafold_tpu_torch.ops.cuda import conv3x3 as tconv
 from rosettafold_tpu_torch.ops.cuda import fused_ff as tff
 from rosettafold_tpu_torch.ops.cuda import fused_performer as tfp
+from rosettafold_tpu_torch.ops.cuda import instance_norm as tin
 from rosettafold_tpu_torch.ops.cuda import layer_norm as tln
 from rosettafold_tpu_torch.ops.cuda import outer_product as topm
 from rosettafold_tpu_torch.ops.cuda import se3_attend as tatt
@@ -1399,3 +1402,262 @@ def test_layer_norm_kernel_model_within_stage_limits_on_card(cuda):
     gaps = _ln_stage_gaps(cuda, 0)
     for key, limit in LN_STAGE_LIMITS.items():
         assert gaps[key] <= limit, (key, gaps[key], limit)
+
+
+# --- kernel IN: the pair ResNets' InstanceNorm (csrc/instance_norm.cu) ---------
+
+
+def _in_block(C=16, seed=0, dropout=0.0, **kw):
+    """A ResBlock2D on the kernel path at tiny width and L (fused_min_l 1),
+    with non-trivial InstanceNorm parameters."""
+    torch.manual_seed(seed)
+    block = tresnet.ResBlock2D(C, dilation=2, p_dropout=dropout, conv_impl="pallas",
+                               fused_min_l=1, **kw)
+    for n in (block.in1, block.in2):
+        n.weight.data.uniform_(0.5, 1.5)
+        n.bias.data.uniform_(-0.2, 0.2)
+    return block
+
+
+def _in_plain_block(block, x):
+    """The conv block on kernel F with the plain InstanceNorm functions, as
+    `conv_block_kernels` ran before kernel IN (dropout off)."""
+    ct = block.dtype or torch.float32
+    x = x.to(ct).contiguous()
+    y1 = tconv.conv3x3_fused(x, tresnet.hwio(block.conv1), None, block.dilation, ct)
+    pre = tresnet.instance_stats(y1, block.in1.weight, block.in1.bias, block.in1.eps)
+    y2 = tconv.conv3x3_fused(y1, tresnet.hwio(block.conv2), pre, block.dilation, ct)
+    inv2, shift2 = tresnet.instance_stats(y2, block.in2.weight, block.in2.bias, block.in2.eps)
+    return tresnet.affine_elu_rows(y2, inv2, shift2, ct, block.row_chunk, x)
+
+
+@pytest.mark.parametrize("dtype,row_chunk", [(torch.float32, None), (torch.bfloat16, None),
+                                             (torch.bfloat16, 4)])
+def test_instance_norm_cpu_block_is_plain(dtype, row_chunk):
+    """On a CPU tensor the kernel-path conv block takes the plain InstanceNorm
+    functions, row chunks and all, bit for bit, and launches nothing; outside
+    autograd nothing is counted as kept plain."""
+    block = _in_block(dtype=None if dtype == torch.float32 else dtype, row_chunk=row_chunk)
+    x = torch.randn(2, 9, 9, 16).to(dtype)
+    launches, calls = tin.launches, tresnet.plain_calls
+    with torch.no_grad():
+        got = block(x)
+        want = _in_plain_block(block, x)
+    assert torch.equal(got, want) and got.dtype == dtype
+    assert (tin.launches, tresnet.plain_calls) == (launches, calls)
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_instance_norm_plain_calls_count_autograd_and_dropout(train):
+    """Under autograd every InstanceNorm decision of a kernel-path block stays
+    plain and is counted (two statistics and the epilogue), and the active
+    dropout branch's plain affine + ELU once more; the ResNet's input norm is
+    one decision. The gradient flows as before."""
+    block = _in_block(dropout=0.5 if train else 0.0)
+    block.train(train)
+    x = torch.randn(1, 8, 8, 16, requires_grad=True)
+    calls = tresnet.plain_calls
+    block(x).sum().backward()
+    assert tresnet.plain_calls == calls + 3 + int(train)
+    assert x.grad is not None and block.in2.weight.grad is not None
+    net = tresnet.ResNet(2, 16, 16, 3, conv_impl="pallas")
+    for blk in net.modules():
+        if isinstance(blk, tresnet.ResBlock2D):
+            blk.fused_min_l = 1
+    calls = tresnet.plain_calls
+    net.eval()(torch.randn(1, 8, 8, 16)).sum().backward()
+    assert tresnet.plain_calls == calls + 1 + 2 * 3
+
+
+@pytest.mark.parametrize("row_chunk", [None, 4])
+def test_instance_norm_cpu_resnet_is_plain(row_chunk):
+    """A ResNet on the kernel path keeps its plain input norm on a CPU tensor:
+    the unchunked form `elu(in_in(x))`, the chunked one through the affine
+    pair, each bit for bit; nothing launched or counted."""
+    torch.manual_seed(1)
+    net = tresnet.ResNet(2, 16, 16, 3, conv_impl="pallas", row_chunk=row_chunk).eval()
+    for blk in net.modules():
+        if isinstance(blk, tresnet.ResBlock2D):
+            blk.fused_min_l = 1
+    net.in_in.weight.data.uniform_(0.5, 1.5)
+    net.in_in.bias.data.uniform_(-0.2, 0.2)
+    x = torch.randn(1, 9, 9, 16)
+    launches, calls = tin.launches, tresnet.plain_calls
+    with torch.no_grad():
+        got = net(x)
+        h = net.proj_in(x)
+        n = net.in_in
+        if row_chunk is None:
+            h = torch.nn.functional.elu(n(h))
+        else:
+            h = tresnet.affine_elu_rows(h, *tresnet.instance_stats(h, n.weight, n.bias, n.eps),
+                                        torch.float32, row_chunk)
+        for i in range(net.n):
+            h = getattr(net, f"block_{i}")(h)
+        want = net.proj_out(h)
+    assert torch.equal(got, want)
+    assert (tin.launches, tresnet.plain_calls) == (launches, calls)
+
+
+def test_instance_norm_wrappers_refuse_cpu():
+    """Both entry points run only on the card: a CPU map they would take there
+    is refused, not served, and counts no launch (`takes_kernel` is the one
+    decision that sends CPU tensors to the plain versions)."""
+    g = torch.Generator().manual_seed(0)
+    y = (torch.randn(2, 5, 7, 16, generator=g) + 0.5).bfloat16()
+    x = torch.randn(2, 5, 7, 16, generator=g).bfloat16()
+    w, b = 1.0 + 0.1 * torch.randn(16, generator=g), 0.1 * torch.randn(16, generator=g)
+    inv, shift = tresnet.instance_stats(y, w, b, 1e-6)
+    launches = tin.launches
+    with pytest.raises(ValueError, match="card"):
+        tin.instance_affine(y, w, b, 1e-6)
+    for res in (None, x):
+        with pytest.raises(ValueError, match="card"):
+            tin.instance_apply(y, inv, shift, res, torch.bfloat16)
+    assert tin.launches == launches
+    assert not tresnet.takes_kernel(y, w, b)
+
+
+@pytest.mark.parametrize("bad", ["float16", "rank", "width", "param_dtype", "x_dtype",
+                                 "inv_shape", "out_dtype", "devices"])
+def test_instance_norm_wrappers_reject(bad):
+    y, x = torch.zeros(1, 4, 4, 8), torch.zeros(1, 4, 4, 8)
+    w, b, inv, out_dtype = torch.ones(8), torch.zeros(8), torch.ones(1, 8), torch.float32
+    err = ValueError
+    if bad == "float16":
+        y, err = y.half(), TypeError
+    elif bad == "rank":
+        y = y[0]
+    elif bad == "width":  # 24 bytes a pixel: no whole 16-byte vectors
+        y, x, w, b, inv = y[..., :6], x[..., :6], w[:6], b[:6], inv[:, :6]
+    elif bad == "param_dtype":
+        w = w.bfloat16()
+    elif bad == "x_dtype":
+        x = x.bfloat16()
+    elif bad == "inv_shape":
+        inv = torch.ones(8)
+    elif bad == "out_dtype":
+        out_dtype, err = torch.float16, TypeError
+    else:
+        y, x = y.to("meta"), x.to("meta")
+    with pytest.raises(err):
+        if bad in ("rank", "width", "param_dtype", "float16", "devices"):
+            tin.instance_affine(y, w, b, 1e-6)
+        tin.instance_apply(y, inv, inv, x, out_dtype)
+
+
+def _in_case(cuda, shape, seed=0, dtype=torch.bfloat16):
+    """A conv-output-like map y (a per-channel offset and scale), a residual x,
+    and InstanceNorm parameters, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    C = shape[-1]
+    scale = 0.5 + torch.rand(C, generator=g, device=cuda)
+    offset = torch.randn(C, generator=g, device=cuda)
+    y = (torch.randn(*shape, generator=g, device=cuda) * scale + offset).to(dtype)
+    x = torch.randn(*shape, generator=g, device=cuda).to(dtype)
+    w = 1.0 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    b = 0.1 * torch.randn(C, generator=g, device=cuda)
+    return y, x, w, b
+
+
+def _in_check_stats(got, want):
+    """inv and shift within 1e-5 of the largest magnitude (float32 sums in
+    another order on each side)."""
+    for a, b in zip(got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def _in_check_apply(got, want):
+    """The same float32 steps on both sides: at least 99.9 % of the outputs
+    bit-equal, the rest within one bf16 ulp."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    equal = float((got == want).float().mean())
+    ulp = 2.0 ** -7 * want.float().abs().clamp_min(2.0 ** -126)
+    assert equal >= 0.999, equal
+    assert bool(((got.float() - want.float()).abs() <= ulp).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 128, 128, 288), (2, 384, 384, 288), (1, 1100, 1100, 288),
+                                   (3, 77, 77, 288)])
+def test_instance_norm_kernel_matches_plain_on_card(cuda, shape):
+    """The served shapes (L = 128, 384, B = 2, and the long request's 1100)
+    and a ragged L = 77: the statistics against `instance_stats`, the epilogue
+    with and without the residual, to bf16 and float32, against
+    `affine_elu_rows` on the same (inv, shift); each twice, bit-equal."""
+    y, x, w, b = _in_case(cuda, shape)
+    launches = tin.launches
+    got = tin.instance_affine(y, w, b, 1e-6)
+    _in_check_stats(got, tresnet.instance_stats(y, w, b, 1e-6))
+    again = tin.instance_affine(y, w, b, 1e-6)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    inv, shift = got
+    for res in (x, None):
+        for dt in (torch.bfloat16, torch.float32):
+            out = tin.instance_apply(y, inv, shift, res, dt)
+            want = tresnet.affine_elu_rows(y, inv, shift, dt, 128 if shape[1] > 512 else None,
+                                           res)
+            _in_check_apply(out, want)
+            del want
+            assert torch.equal(out, tin.instance_apply(y, inv, shift, res, dt))
+    torch.cuda.synchronize()
+    assert tin.launches == launches + 2 + 8
+
+
+@pytest.mark.gpu
+def test_instance_norm_kernel_float32_on_card(cuda):
+    """A float32 map (the float32 model's kernel path): 4 channels a load."""
+    y, x, w, b = _in_case(cuda, (2, 130, 130, 288), seed=1, dtype=torch.float32)
+    inv, shift = tin.instance_affine(y, w, b, 1e-6)
+    _in_check_stats((inv, shift), tresnet.instance_stats(y, w, b, 1e-6))
+    for res in (x, None):
+        for dt in (torch.float32, torch.bfloat16):
+            _in_check_apply(tin.instance_apply(y, inv, shift, res, dt),
+                            tresnet.affine_elu_rows(y, inv, shift, dt, None, res))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("view", ["misaligned", "transposed"])
+def test_instance_norm_wrapper_rejects_views_on_card(cuda, view):
+    """A map that is not contiguous and 16-byte aligned is refused, never
+    copied or read element by element."""
+    y, _, w, b = _in_case(cuda, (1, 64 * 64 * 288 + 1), seed=2)
+    y = y[0, 1:].view(1, 64, 64, 288) if view == "misaligned" else \
+        y[0, :-1].view(1, 64, 64, 288).transpose(1, 2)
+    with pytest.raises(ValueError):
+        tin.instance_affine(y, w, b, 1e-6)
+    inv = torch.ones(1, 288, device=cuda)
+    with pytest.raises(ValueError):
+        tin.instance_apply(y, inv, inv)
+
+
+@pytest.mark.gpu
+def test_instance_norm_resnet_on_card_engages_and_matches(cuda, monkeypatch):
+    """A head ResNet at flagship width (288 channels, 4 blocks, bf16) at
+    L = 160 on the card: every InstanceNorm decision launches kernel IN
+    (none kept plain), and its logits lie within 1e-2 (relative norm) of the
+    same module with IN's plain versions (bf16 maps rounded after statistics
+    summed in another order)."""
+    torch.manual_seed(0)
+    net = tresnet.ResNet(4, 288, 288, 37, p_dropout=0.1, dtype=torch.bfloat16,
+                         conv_impl="pallas").to(cuda).eval()
+    for n in net.modules():
+        if isinstance(n, tresnet.InstanceNorm2d):
+            n.weight.data.uniform_(0.5, 1.5)
+            n.bias.data.uniform_(-0.2, 0.2)
+    x = torch.randn(1, 160, 160, 288, device=cuda)
+    launches, calls = tin.launches, tresnet.plain_calls
+    with torch.inference_mode():
+        got = net(x)
+    torch.cuda.synchronize()
+    assert tin.launches - launches == 2 + 4 * 3 and tresnet.plain_calls == calls
+    monkeypatch.setattr(tin, "instance_affine", tresnet.instance_stats)
+    monkeypatch.setattr(tin, "instance_apply",
+                        lambda y, inv, shift, x, dt: tresnet.affine_elu_rows(
+                            y, inv, shift, dt, None, x))
+    with torch.inference_mode():
+        want = net(x)
+    gap = _rel(got, want)
+    print(f"IN ResNet L=160: relative gap {gap:.3e}")
+    assert gap <= 1e-2, gap
